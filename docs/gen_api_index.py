@@ -8,7 +8,7 @@ import pathlib
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 GROUPS = [
-    ("L0 infra", ["config.py", "fmt.py", "logger.py", "checkpoint.py",
+    ("L0 infra", ["nn.py", "config.py", "fmt.py", "logger.py", "checkpoint.py",
                   "checkpoint_sharded.py", "profile.py", "utils.py",
                   "bindings.py", "coordinates.py"]),
     ("L1 ops (kernels)", "ops"),

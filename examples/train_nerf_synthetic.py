@@ -5,7 +5,7 @@ example shows the full downstream workflow on this framework:
 
     python examples/train_nerf_synthetic.py --iters 500 --out /tmp/nerf_run
 
-Works on CPU (add --cpu) or the TPU chip. The "dataset" is an analytic
+Works on CPU (add --cpu) or one GPU (one process per card). The "dataset" is an analytic
 normal-colored sphere so the example is self-contained.
 """
 
@@ -26,7 +26,7 @@ def main():
     ap.add_argument("--out", type=str, default="/tmp/nerf_run")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--brick", action="store_true",
-                    help="use the Pallas brick encoding backend")
+                    help="use the brick-layout encoding backend")
     ap.add_argument("--w4", action="store_true",
                     help="bf16-packed F=4 levels (half the gathers per "
                          "feature; implies --brick)")
@@ -43,10 +43,12 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from nr3d_lib_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import optax
-    from flax import nnx
+    from nr3d_lib_tpu import nn
 
     from nr3d_lib_tpu.checkpoint import CheckpointIO
     from nr3d_lib_tpu.graphics.metrics import psnr
@@ -70,7 +72,7 @@ def main():
                                      "density_decoder_cfg": {"D": 1, "W": 64},
                                      "radiance_cfg": {"D": 2, "W": 64}})
     model.populate()
-    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    graphdef, params, rest = nn.split(model, nn.Param, ...)
     opt = optax.adam(5e-3)
     opt_state = opt.init(params)
     logger = Logger(args.out, use_tensorboard=False)
@@ -148,7 +150,7 @@ def main():
         return views
 
     def eval_heldout(params, views):
-        m = nnx.merge(graphdef, params, rest)
+        m = nn.merge(graphdef, params, rest)
         vals = []
         for o, d in views:
             rt = m.space.ray_test(o, d)
@@ -174,7 +176,7 @@ def main():
     @jax.jit
     def train_step(params, opt_state, o, d, rgb_gt, key):
         def loss_fn(p):
-            m = nnx.merge(graphdef, p, rest)
+            m = nn.merge(graphdef, p, rest)
             rt = m.space.ray_test(o, d)
             rendered, _ = nerf_ray_query_fixed(m, m.space, rt, n_samples=64,
                                                perturb_key=key)
@@ -202,7 +204,7 @@ def main():
             print(f"it {it:5d}  held-out PSNR {p_ho:.2f} dB")
     print(f"trained {args.iters} iters in {time.time() - t0:.1f}s")
 
-    nnx.update(model, params)
+    nn.update(model, params)
     o, d = sample_rays(2048, jax.random.key(123))
     rt = model.space.ray_test(o, d)
     rendered, _ = nerf_ray_query_fixed(model, model.space, rt, n_samples=64)
@@ -214,7 +216,7 @@ def main():
         logger.add("val", "psnr_heldout", p_ho, args.iters)
         print(f"held-out-view PSNR ({args.scene}): {p_ho:.2f} dB")
 
-    ckpt.save("ckpt_final.msgpack", it=args.iters, psnr=val_psnr)
+    ckpt.save("ckpt_final.npz", it=args.iters, psnr=val_psnr)
     # refresh the occupancy grid from the trained density so the turntable's
     # marched query skips empty space (training_before_per_step does this
     # incrementally during a real run)

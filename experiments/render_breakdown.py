@@ -1,6 +1,6 @@
-"""Phase breakdown of the compressed NeRF render on the real TPU.
+"""Phase breakdown of the compressed NeRF render on the GPU.
 
-Answers: where do the ms go at 543 Krays/s?  Times successive prefixes of
+Answers: where do the ms go?  Times successive prefixes of
 the pipeline (march → compaction → density → radiance → full composite)
 with the chained-timing harness, plus a ray-batch scaling sweep — if
 rays/s climbs with the batch, the residual is per-call overhead, not
@@ -19,7 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def build(n_rays):
     import jax
     import jax.numpy as jnp
-    from flax import nnx
+    from nr3d_lib_tpu import nn
 
     from nr3d_lib_tpu.graphics import pack_ops as po
     from nr3d_lib_tpu.graphics.nerf import ray_alpha_to_vw, tau_to_alpha
@@ -40,7 +40,7 @@ def build(n_rays):
     occ = jax.random.uniform(jax.random.key(5),
                              model.accel.occ.val_grid[...].shape) < 0.15
     model.accel.occ.val_grid[...] = occ.astype(jnp.float32)
-    graphdef, state = nnx.split(model)
+    graphdef, state = nn.split(model)
 
     k1, k2 = jax.random.split(jax.random.key(0))
     o = jax.random.normal(k1, (n_rays, 3))
@@ -50,7 +50,7 @@ def build(n_rays):
 
     def phase(stop):
         def run(st, oo, dd):
-            m = nnx.merge(graphdef, st)
+            m = nn.merge(graphdef, st)
             rt = m.ray_test(oo, dd)
             o_n, d_n = m.space.normalize_rays(rt["rays_o"], rt["rays_d"])
             t, dt, smask = m.accel.ray_march(o_n, d_n, rt["near"], rt["far"])
@@ -118,8 +118,9 @@ def _t(f, n, state, o, d):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from nr3d_lib_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     batches = [int(a) for a in sys.argv[1:]] or [8192, 32768]
     for n_rays in batches:

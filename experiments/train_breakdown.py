@@ -1,6 +1,6 @@
-"""Phase breakdown of the compressed NeuS TRAIN step on the real TPU.
+"""Phase breakdown of the compressed NeuS TRAIN step on the GPU.
 
-Where do the ms go at ~80 Krays/s trained?  Times nested prefixes:
+Where do the ms go?  Times nested prefixes:
 
   sample   march + upsample rounds, forward only (stop_gradient placement)
   fwd      + final compressed composite, loss VALUE only
@@ -22,7 +22,7 @@ def build(n_rays=4096, w4=False):
     import jax
     import jax.numpy as jnp
     import optax
-    from flax import nnx
+    from nr3d_lib_tpu import nn
 
     from nr3d_lib_tpu.models.model_base import LoTDNeuSModel
 
@@ -50,7 +50,7 @@ def build(n_rays=4096, w4=False):
     occ = jax.random.uniform(jax.random.key(5),
                              model.accel.occ.val_grid[...].shape) < 0.15
     model.accel.occ.val_grid[...] = occ.astype(jnp.float32)
-    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    graphdef, params, rest = nn.split(model, nn.Param, ...)
     opt = optax.adam(5e-3)
     opt_state = opt.init(params)
 
@@ -65,7 +65,7 @@ def build(n_rays=4096, w4=False):
     from nr3d_lib_tpu.graphics.neus_ray_query import _upsample_rounds
 
     def sample_only(p, oo, dd, key):
-        m = nnx.merge(graphdef, p, rest)
+        m = nn.merge(graphdef, p, rest)
         rt = m.space.ray_test(oo, dd)
         o_n, d_n = m.space.normalize_rays(rt["rays_o"], rt["rays_d"])
         t, dt, smask = m.accel.ray_march(o_n, d_n, rt["near"], rt["far"],
@@ -78,7 +78,7 @@ def build(n_rays=4096, w4=False):
         return jnp.sum(t * valid)
 
     def loss_of(p, oo, dd, key, with_eik):
-        m = nnx.merge(graphdef, p, rest)
+        m = nn.merge(graphdef, p, rest)
         rt = m.space.ray_test(oo, dd)
         rendered, vb = m.ray_query(rt, key=key)
         loss = jnp.mean((rendered["rgb_volume"] - rgb_gt) ** 2)
@@ -139,8 +139,9 @@ def timeit(step, params, opt_state, o, d, n_hi=5):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from nr3d_lib_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     w4 = "--w4" in sys.argv
     n_rays = 4096
     make, params, opt_state, o, d = build(n_rays, w4)

@@ -1,7 +1,7 @@
 """Native (C++) extension loader via ctypes.
 
-The reference builds six CUDA extension packages (csrc/ via setup.py); on
-TPU the compute kernels are Pallas, and the host-side native pieces (mesh
+The reference builds six CUDA extension packages (csrc/ via setup.py);
+here the compute kernels are JAX, and the host-side native pieces (mesh
 extraction) are plain C++ compiled on first use with g++ into a shared
 library cached next to the sources (no pybind11 in this image — ctypes).
 """

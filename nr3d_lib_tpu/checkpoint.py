@@ -1,15 +1,18 @@
-"""Checkpoint IO: named-module registry → single msgpack file.
+"""Checkpoint IO: named-module registry → single numpy ``.npz`` file.
 
-TPU-native equivalent of the reference's `CheckpointIO`
+Equivalent of the reference's `CheckpointIO`
 (reference: nr3d_lib/checkpoint.py:19-166): register named modules, save
 their states plus extra scalars into one file, load with ignore/only-use key
 filters, and pick up the newest checkpoint with `sorted_ckpts` ordering
 (final > latest > highest-iteration).
 
 Registered objects may be:
-  * a raw pytree of arrays (saved as-is),
+  * a raw pytree of arrays (nested dicts; saved as-is),
   * an object with ``state_dict()`` / ``load_state_dict()``,
-  * a ``flax.nnx.Module`` (serialized via ``nnx.state`` / ``nnx.update``).
+  * an `nn.Module` (saved via ``nn.state``, restored via ``nn.update``).
+
+In the file, nested keys are joined with ``/``; extra scalars live under
+``__extras__/``.
 """
 
 from __future__ import annotations
@@ -21,54 +24,44 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from nr3d_lib_tpu import nn
+
 __all__ = ["CheckpointIO", "sorted_ckpts"]
 
-
-def _is_nnx_module(obj) -> bool:
-    try:
-        from flax import nnx
-
-        return isinstance(obj, nnx.Module)
-    except ImportError:
-        return False
+_SEP = "/"
+_EXTRAS = "__extras__"
 
 
 def _get_state(obj) -> Any:
     if hasattr(obj, "state_dict"):
         return obj.state_dict()
-    if _is_nnx_module(obj):
-        from flax import nnx
-
-        return nnx.to_pure_dict(nnx.state(obj))
+    if isinstance(obj, nn.Module):
+        return nn.state(obj)
     return obj  # raw pytree
 
 
-def _to_numpy(tree):
-    import jax
-
-    def conv(x):
-        if hasattr(x, "dtype") and hasattr(x, "shape"):
-            return np.asarray(x)
-        return x
-
-    return jax.tree_util.tree_map(conv, tree)
-
-
-def _str_keys(tree):
-    """msgpack requires string map keys; nnx states use int keys for lists."""
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]):
     if isinstance(tree, dict):
-        return {str(k): _str_keys(v) for k, v in tree.items()}
-    return tree
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{_SEP}{k}", out)
+    else:
+        out[prefix] = np.asarray(tree)
 
 
-def _unstr_keys(tree):
-    if isinstance(tree, dict):
-        return {(int(k) if isinstance(k, str) and k.lstrip("-").isdigit() else k):
-                _unstr_keys(v) for k, v in tree.items()}
-    return tree
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Inverse of `_flatten`; digit keys (list positions) become ints."""
+    out: Dict[str, Any] = {}
+    for key, v in flat.items():
+        parts = [int(p) if p.lstrip("-").isdigit() else p
+                 for p in key.split(_SEP)]
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+    return out
 
 
-def sorted_ckpts(ckpt_dir: str, ext: str = ".msgpack") -> List[str]:
+def sorted_ckpts(ckpt_dir: str, ext: str = ".npz") -> List[str]:
     """Order: final > latest > highest iteration (reference: checkpoint.py:136-166)."""
     paths = sorted(glob(os.path.join(ckpt_dir, f"*{ext}")))
     final, latest, iters = [], [], []
@@ -97,29 +90,27 @@ class CheckpointIO:
 
     # ------------------------------------------------------------------ save
     def save(self, filename: str, **extra_scalars) -> str:
-        from flax import serialization
-
         if not os.path.isabs(filename):
             filename = os.path.join(self.checkpoint_dir, filename)
-        payload = {k: _str_keys(_to_numpy(_get_state(m)))
-                   for k, m in self.module_dict.items()}
-        payload["__extras__"] = dict(extra_scalars)
+        flat: Dict[str, np.ndarray] = {}
+        for k, m in self.module_dict.items():
+            _flatten(_get_state(m), k, flat)
+        _flatten(dict(extra_scalars), _EXTRAS, flat)
+        # np.savez appends ".npz" to other names; write through a handle
         with open(filename, "wb") as f:
-            f.write(serialization.msgpack_serialize(payload))
+            np.savez(f, **flat)
         return filename
 
     # ------------------------------------------------------------------ load
     def load(self, filename: str,
              ignore_keys: Sequence[str] = (),
              only_use_keys: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-        from flax import serialization
-
         if not os.path.isabs(filename) and not os.path.exists(filename):
             filename = os.path.join(self.checkpoint_dir, filename)
-        with open(filename, "rb") as f:
-            payload = serialization.msgpack_restore(f.read())
-        extras = payload.pop("__extras__", {})
-        payload = {k: _unstr_keys(v) for k, v in payload.items()}
+        with np.load(filename, allow_pickle=False) as z:
+            payload = _unflatten({k: z[k] for k in z.files})
+        extras = {k: (v.item() if v.ndim == 0 else v)
+                  for k, v in payload.pop(_EXTRAS, {}).items()}
         for name, state in payload.items():
             if name in ignore_keys:
                 continue
@@ -133,12 +124,8 @@ class CheckpointIO:
                 obj.before_load_state_dict(state)
             if hasattr(obj, "load_state_dict"):
                 obj.load_state_dict(state)
-            elif _is_nnx_module(obj):
-                from flax import nnx
-
-                st = nnx.state(obj)
-                nnx.replace_by_pure_dict(st, state)
-                nnx.update(obj, st)
+            elif isinstance(obj, nn.Module):
+                nn.update(obj, state)
             else:
                 self.module_dict[name] = state
         return extras

@@ -2,10 +2,10 @@
 
 `checkpoint.py` is the reference-shaped registry IO (reference:
 nr3d_lib/checkpoint.py:19 CheckpointIO): it gathers state to host numpy
-and writes one msgpack — right for single-host models, wrong for params
+and writes one .npz — right for single-host models, wrong for params
 sharded over a mesh (a forest's per-block tables or a table-parallel hash
 table may exceed one host, and gathering defeats the sharding). This
-module is the TPU-native complement (SURVEY §5 names orbax as the
+module is the sharded complement (SURVEY §5 names orbax as the
 equivalent): each process writes its own shards via orbax/tensorstore,
 and restore places shards directly onto the requested sharding — no
 host gather, and resharding on load is free (restore to a different mesh

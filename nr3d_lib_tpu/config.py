@@ -1,6 +1,6 @@
 """Config system: YAML + CLI-dotlist merged attribute-dicts.
 
-TPU-native re-design of the reference's OmegaConf/addict config stack
+Re-design of the reference's OmegaConf/addict config stack
 (reference: nr3d_lib/config.py:18-148). Same semantics without the OmegaConf
 dependency:
 
@@ -24,7 +24,6 @@ import re
 from numbers import Number
 from typing import Any, Dict, List, Optional, Sequence, Union
 
-import yaml
 
 __all__ = [
     "ConfigDict",
@@ -131,6 +130,8 @@ def merge_dicts(base: dict, override: dict, allow_new: bool = True) -> ConfigDic
 
 def parse_value(text: str) -> Any:
     """Parse a CLI value string with YAML semantics ('1'→int, 'true'→bool...)."""
+    import yaml
+
     try:
         return yaml.safe_load(text)
     except yaml.YAMLError:
@@ -189,6 +190,8 @@ def import_str(string: str):
 
 def load_config(path: Union[str, os.PathLike], resolve_exprs: bool = True) -> ConfigDict:
     """Load a YAML config; a top-level ``_base_`` key includes parent yaml(s)."""
+    import yaml
+
     with open(path, "r") as f:
         raw = yaml.safe_load(f) or {}
     base_paths = raw.pop("_base_", None)
@@ -219,6 +222,8 @@ def instantiate(cfg: dict, **overrides):
 
 
 def save_config(cfg: dict, path: Union[str, os.PathLike]):
+    import yaml
+
     with open(path, "w") as f:
         yaml.safe_dump(ConfigDict(cfg).to_dict(), f, sort_keys=False)
 
@@ -277,5 +282,7 @@ class BaseConfig:
         cfg = merge_dotlist(cfg, dotlist)
         cfg = resolve(cfg)
         if print_config:
+            import yaml
+
             print(yaml.safe_dump(cfg.to_dict(), sort_keys=False))
         return cfg

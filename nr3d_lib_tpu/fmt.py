@@ -44,7 +44,7 @@ class _MasterOnlyFilter(logging.Filter):
 
 
 def _build_logger() -> logging.Logger:
-    logger = logging.getLogger("nr3d_tpu")
+    logger = logging.getLogger("nr3d_lib")
     if not logger.handlers:
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(_ColorFormatter())

@@ -1,6 +1,6 @@
 """3D Gaussian splatting renderer (+ relightable render-equation head).
 
-TPU-native re-design of the reference's r3dg tile rasterizer
+Re-design of the reference's r3dg tile rasterizer
 (reference: externals/r3dg_rasterization N11 — rasterize_gaussians fwd/bwd,
 render_equation_forward/backward, mark_visible). Two paths:
 
@@ -182,232 +182,215 @@ def _inv_cov2d(cov2d: Array) -> Array:
         -2) / det[:, None, None]
 
 
-# attrs-row indices for the Pallas blend ([T, _N_ATTR, K] layout)
+# attrs-row indices for the kernel blend ([T, _N_ATTR, K] layout)
 _A_MUX, _A_MUY, _A_IC00, _A_IC01, _A_IC11, _A_OP, \
     _A_CR, _A_CG, _A_CB, _A_DEP, _A_LIVE = range(11)
-_N_ATTR = 16  # padded sublane count
+_N_ATTR = 16            # rows padded to a power of two (Triton blocks)
+_N_GRAD = 10            # rows _A_MUX.._A_DEP receive gradients
+_T_MIN = 1e-4           # a pixel stops once its transmittance drops below
+                        # this (the CUDA rasterizer's early-out; the slot
+                        # that crosses it is still blended, so what is
+                        # skipped weighs < 1e-4 and T stays ≥ 1e-7)
+_BWD_CHUNK = 32         # slots per backward gradient store
 
 
-def _lane_shift_right(x: Array, s: int) -> Array:
-    """Shift x right by s along the last (lane) axis, filling with 1.0 —
-    static concat+slice, pure vector work."""
-    return jnp.concatenate([jnp.ones_like(x[:, :s]), x[:, :-s]], axis=1)
+def _blend_pixel_coords(tile: int, orig_ref):
+    p = jax.lax.broadcasted_iota(jnp.int32, (tile * tile,), 0)
+    px = (p % tile).astype(jnp.float32) + 0.5 + orig_ref[0, 0]
+    py = (p // tile).astype(jnp.float32) + 0.5 + orig_ref[0, 1]
+    return px, py
 
 
-def _blend_tile_kernel(tile: int, cap: int, bg, alpha_floor: float,
-                       attrs_ref, orig_ref, out_ref):
-    """Front-to-back composite of one tile's ≤cap gaussians, VMEM-local.
+def _blend_slot(attrs_ref, k, px, py, alpha_floor):
+    """One slot's per-pixel terms: (attr getter, dx, dy, G, raw, alpha,
+    live) with alpha already masked to 0 where the slot does not count."""
+    def at(r):
+        return attrs_ref[0, r, k]
 
-    The XLA blend materializes [chunk, P, K] temporaries through HBM —
-    ~70 ms/frame of pure bandwidth at 500k×512². Here everything lives
-    in-register: alpha [P, K] (P = tile² sublanes, K lanes), inclusive
-    transmittance via a Hillis-Steele doubling scan along lanes, then
-    lane-reductions for rgb/acc/depth. Training differentiates through
-    `_blend_tiles_pallas` (custom_vjp → `_blend_tile_bwd_kernel`)."""
-    from jax.experimental import pallas as pl
-
-    P = tile * tile
-    a = attrs_ref[0]                                           # [A, K]
-
-    def row(i):
-        return a[i:i + 1, :]                                   # [1, K]
-
-    t_id = pl.program_id(0)
-    p_idx = jax.lax.broadcasted_iota(jnp.int32, (P, cap), 0)
-    px = (p_idx % tile).astype(jnp.float32) + 0.5 + orig_ref[0, t_id]
-    py = (p_idx // tile).astype(jnp.float32) + 0.5 + orig_ref[1, t_id]
-    dx = px - row(_A_MUX)
-    dy = py - row(_A_MUY)
-    md = (dx * dx * row(_A_IC00) + dy * dy * row(_A_IC11)
-          + 2.0 * dx * dy * row(_A_IC01))
-    alpha = jnp.clip(row(_A_OP) * jnp.exp(-0.5 * md), 0.0, 0.999)
-    alpha = jnp.where((row(_A_LIVE) > 0.0) & (alpha > alpha_floor),
-                      alpha, 0.0)
-    t = 1.0 - alpha + 1e-10
-    s = 1
-    while s < cap:                       # inclusive cumprod along lanes
-        t = t * _lane_shift_right(t, s)
-        s *= 2
-    trans = _lane_shift_right(t, 1)      # exclusive
-    vw = alpha * trans                                          # [P, K]
-    acc = jnp.sum(vw, axis=1, keepdims=True)                    # [P, 1]
-    out = [jnp.sum(vw * row(_A_CR + c), axis=1, keepdims=True)
-           + (1.0 - acc) * bg[c] for c in range(3)]
-    dep = jnp.sum(vw * row(_A_DEP), axis=1, keepdims=True) \
-        / jnp.maximum(acc, 1e-10)
-    out_ref[0] = jnp.concatenate(
-        out + [acc, dep, jnp.zeros((P, 3), jnp.float32)], axis=1)
-
-
-def _lane_shift_left(x: Array, s: int) -> Array:
-    """Shift x left by s along the last (lane) axis, filling with 0.0."""
-    return jnp.concatenate([x[:, s:], jnp.zeros_like(x[:, :s])], axis=1)
-
-
-def _blend_tile_bwd_kernel(tile: int, cap: int, bg, alpha_floor: float,
-                           attrs_ref, orig_ref, gout_ref, dattrs_ref):
-    """Backward of the per-tile blend, VMEM-local (reference:
-    r3dg cuda_rasterizer/backward.cu renderCUDA — the back-to-front
-    re-walk). Recomputes alpha/transmittance from attrs, turns the
-    downstream Σ_{j>k} chain into one reverse Hillis-Steele lane scan,
-    and reduces per-gaussian gradients over the tile's pixels (sublanes).
-    Emits dL/dattrs [A, K]; the caller's XLA gather-transpose scatters
-    rows back onto gaussians."""
-    from jax.experimental import pallas as pl
-
-    P = tile * tile
-    a = attrs_ref[0]                                           # [A, K]
-
-    def row(i):
-        return a[i:i + 1, :]
-
-    t_id = pl.program_id(0)
-    p_idx = jax.lax.broadcasted_iota(jnp.int32, (P, cap), 0)
-    px = (p_idx % tile).astype(jnp.float32) + 0.5 + orig_ref[0, t_id]
-    py = (p_idx // tile).astype(jnp.float32) + 0.5 + orig_ref[1, t_id]
-    dx = px - row(_A_MUX)
-    dy = py - row(_A_MUY)
-    md = (dx * dx * row(_A_IC00) + dy * dy * row(_A_IC11)
-          + 2.0 * dx * dy * row(_A_IC01))
+    dx = px - at(_A_MUX)
+    dy = py - at(_A_MUY)
+    md = dx * dx * at(_A_IC00) + dy * dy * at(_A_IC11) \
+        + 2.0 * dx * dy * at(_A_IC01)
     G = jnp.exp(-0.5 * md)
-    raw = row(_A_OP) * G
+    raw = at(_A_OP) * G
     alpha = jnp.clip(raw, 0.0, 0.999)
-    live = (row(_A_LIVE) > 0.0) & (alpha > alpha_floor)
-    alpha = jnp.where(live, alpha, 0.0)
-    t = 1.0 - alpha + 1e-10
-    s = 1
-    tc = t
-    while s < cap:                       # inclusive cumprod along lanes
-        tc = tc * _lane_shift_right(tc, s)
-        s *= 2
-    trans = _lane_shift_right(tc, 1)     # exclusive transmittance
-    vw = alpha * trans                                          # [P, K]
-    acc = jnp.sum(vw, axis=1, keepdims=True)                    # [P, 1]
-    A_ = jnp.maximum(acc, 1e-10)
-    dep = jnp.sum(vw * row(_A_DEP), axis=1, keepdims=True) / A_
-
-    g = gout_ref[0]                                             # [P, 8]
-    g_rgb = [g[:, c:c + 1] for c in range(3)]
-    g_acc = g[:, 3:4]
-    g_dep = g[:, 4:5]
-
-    # dL/dvw_k: rgb (with bg complement), acc, and the normalized depth
-    dvw = g_acc + g_dep * (row(_A_DEP) - dep) / A_
-    for c in range(3):
-        dvw = dvw + g_rgb[c] * (row(_A_CR + c) - bg[c])
-
-    # dL/dalpha_k = dvw_k·T_k − (Σ_{j>k} dvw_j·vw_j) / (1−alpha_k+eps)
-    u = dvw * vw
-    s = 1
-    rc = u
-    while s < cap:                       # reverse inclusive cumsum
-        rc = rc + _lane_shift_left(rc, s)
-        s *= 2
-    B = _lane_shift_left(rc, 1)          # Σ over j>k
-    dalpha = dvw * trans - B / t
-    # clip/mask subgradients: inactive lanes and saturated alphas get 0
-    dalpha = jnp.where(live & (raw < 0.999), dalpha, 0.0)
-
-    d_op = jnp.sum(dalpha * G, axis=0, keepdims=True)           # [1, K]
-    dmd = dalpha * raw * (-0.5)                                 # [P, K]
-    d_ic00 = jnp.sum(dmd * dx * dx, axis=0, keepdims=True)
-    d_ic11 = jnp.sum(dmd * dy * dy, axis=0, keepdims=True)
-    d_ic01 = jnp.sum(dmd * 2.0 * dx * dy, axis=0, keepdims=True)
-    ddx = dmd * (2.0 * dx * row(_A_IC00) + 2.0 * dy * row(_A_IC01))
-    ddy = dmd * (2.0 * dy * row(_A_IC11) + 2.0 * dx * row(_A_IC01))
-    d_mux = -jnp.sum(ddx, axis=0, keepdims=True)
-    d_muy = -jnp.sum(ddy, axis=0, keepdims=True)
-    d_col = [jnp.sum(g_rgb[c] * vw, axis=0, keepdims=True) for c in range(3)]
-    d_dep = jnp.sum(g_dep * vw / A_, axis=0, keepdims=True)
-
-    K = a.shape[1]
-    dattrs_ref[0] = jnp.concatenate(
-        [d_mux, d_muy, d_ic00, d_ic01, d_ic11, d_op] + d_col
-        + [d_dep, jnp.zeros((_N_ATTR - 10, K), jnp.float32)], axis=0)
+    live = (at(_A_LIVE) > 0.0) & (alpha > alpha_floor)
+    return at, dx, dy, G, raw, jnp.where(live, alpha, 0.0), live
 
 
-def _blend_tiles_pallas_raw(attrs: Array, origin: Array, bg, tile: int,
-                            alpha_floor: float, interpret: bool = False
-                            ) -> Tuple[Array, Array, Array]:
-    """attrs [T, _N_ATTR, K], origin [T, 2] → (rgb [T,P,3], acc [T,P],
-    dep [T,P])."""
-    import functools
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    T, A, cap = attrs.shape
+def _blend_fwd_kernel(tile: int, cap: int, bg, alpha_floor: float,
+                      attrs_ref, orig_ref, out_ref):
+    """Front-to-back composite of one tile's ≤cap slots; one program per
+    tile, its tile² pixels as the block (reference: r3dg
+    cuda_rasterizer/forward.cu renderCUDA). Transmittance and colour stay
+    in registers; the loop ends once every pixel is done. Writes rows
+    (r, g, b, acc, depth, T_final, n_contrib, 0) of out [8, P]."""
     P = tile * tile
-    # the kernel blends in f32 regardless of x64 mode
-    attrs = attrs.astype(jnp.float32)
-    origin = origin.astype(jnp.float32)
-    out = pl.pallas_call(
-        functools.partial(_blend_tile_kernel, tile, cap,
-                          tuple(float(c) for c in bg), alpha_floor),
-        grid=(T,),
-        in_specs=[pl.BlockSpec((1, A, cap), lambda i: (i, 0, 0)),
-                  # whole [2, T] origin table rides SMEM (a (1,2) block
-                  # violates the TPU block-divisibility rule); the kernel
-                  # indexes it by program_id
-                  pl.BlockSpec((2, T), lambda i: (0, 0),
-                               memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec((1, P, 8), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((T, P, 8), jnp.float32),
+    px, py = _blend_pixel_coords(tile, orig_ref)
+    zero = jnp.zeros((P,), jnp.float32)
+
+    def cond(carry):
+        k, done = carry[0], carry[1]
+        return (k < cap) & (jnp.min(done) < 1)
+
+    def body(carry):
+        k, done, T, n, r, g, b, acc, dep = carry
+        at, _, _, _, _, alpha, _ = _blend_slot(attrs_ref, k, px, py,
+                                               alpha_floor)
+        new_T = T * (1.0 - alpha + 1e-10)
+        on = done < 1
+        vw = jnp.where(on, alpha * T, 0.0)
+        return (k + 1, jnp.where(on & (new_T < _T_MIN), 1, done),
+                jnp.where(on, new_T, T),
+                jnp.where(on, (k + 1).astype(jnp.float32), n),
+                r + vw * at(_A_CR), g + vw * at(_A_CG), b + vw * at(_A_CB),
+                acc + vw, dep + vw * at(_A_DEP))
+
+    init = (jnp.int32(0), jnp.zeros((P,), jnp.int32), zero + 1.0, zero,
+            zero, zero, zero, zero, zero)
+    _, _, T, n, r, g, b, acc, dep = jax.lax.while_loop(cond, body, init)
+    rows = (r + (1.0 - acc) * bg[0], g + (1.0 - acc) * bg[1],
+            b + (1.0 - acc) * bg[2], acc, dep / jnp.maximum(acc, 1e-10),
+            T, n, zero)
+    for i, v in enumerate(rows):
+        out_ref[0, i, :] = v
+
+
+def _blend_bwd_kernel(tile: int, cap: int, bg, alpha_floor: float,
+                      attrs_ref, orig_ref, fwd_ref, gout_ref, dattrs_ref):
+    """Backward of one tile (reference: r3dg cuda_rasterizer/backward.cu
+    renderCUDA): walk the slots back to front from each pixel's saved final
+    transmittance, undoing one factor per slot, with the suffix sum
+    Σ_{j>k} dvw_j·vw_j carried in registers. dattrs[tile, :, slot] is a
+    sum over the tile's own pixels, so no atomics are needed; each chunk of
+    `_BWD_CHUNK` slots is stored once."""
+    from jax.experimental import pallas as pl
+
+    C = min(_BWD_CHUNK, cap)
+    P = tile * tile
+    px, py = _blend_pixel_coords(tile, orig_ref)
+    acc, dep = fwd_ref[0, 3, :], fwd_ref[0, 4, :]
+    T_fin, n_contrib = fwd_ref[0, 5, :], fwd_ref[0, 6, :]
+    g_rgb = [gout_ref[0, c, :] for c in range(3)]
+    g_acc, g_dep = gout_ref[0, 3, :], gout_ref[0, 4, :]
+    A_ = jnp.maximum(acc, 1e-10)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (C,), 0)
+    zc = jnp.zeros((C,), jnp.float32)
+
+    def chunk(ci, carry):
+        c = cap // C - 1 - ci                    # chunks back to front
+
+        def slot(j, carry):
+            T, S, grads = carry
+            pos = C - 1 - j
+            k = c * C + pos
+            at, dx, dy, G, raw, alpha, live = _blend_slot(
+                attrs_ref, k, px, py, alpha_floor)
+            on = k.astype(jnp.float32) < n_contrib
+            one_m = 1.0 - alpha + 1e-10
+            T_k = jnp.where(on, T / one_m, T)    # transmittance before k
+            vw = jnp.where(on, alpha * T_k, 0.0)
+            dvw = g_acc + g_dep * (at(_A_DEP) - dep) / A_
+            for cc in range(3):
+                dvw = dvw + g_rgb[cc] * (at(_A_CR + cc) - bg[cc])
+            # clip/mask subgradients: pixels past their early-out, dead
+            # slots and saturated alphas get none (masked before the
+            # product so no inf·0 from a padding slot's garbage reaches it)
+            ok = on & live & (raw < 0.999)
+            dalpha = jnp.where(ok, dvw * T_k - S / one_m, 0.0)
+            dmd = dalpha * jnp.where(ok, raw, 0.0) * (-0.5)
+            vals = (
+                -jnp.sum(dmd * (2.0 * dx * at(_A_IC00)
+                                + 2.0 * dy * at(_A_IC01))),
+                -jnp.sum(dmd * (2.0 * dy * at(_A_IC11)
+                                + 2.0 * dx * at(_A_IC01))),
+                jnp.sum(dmd * dx * dx),
+                jnp.sum(dmd * 2.0 * dx * dy),
+                jnp.sum(dmd * dy * dy),
+                jnp.sum(dalpha * jnp.where(ok, G, 0.0)),
+                jnp.sum(g_rgb[0] * vw), jnp.sum(g_rgb[1] * vw),
+                jnp.sum(g_rgb[2] * vw),
+                jnp.sum(g_dep * vw / A_))
+            grads = tuple(jnp.where(lane == pos, v, gv)
+                          for v, gv in zip(vals, grads))
+            return T_k, S + dvw * vw, grads
+
+        T, S, grads = jax.lax.fori_loop(
+            0, C, slot, carry + ((zc,) * _N_GRAD,))
+        for r in range(_N_ATTR):
+            dattrs_ref[0, r, pl.ds(c * C, C)] = grads[r] if r < _N_GRAD \
+                else zc
+        return T, S
+
+    jax.lax.fori_loop(0, cap // C, chunk,
+                      (T_fin, jnp.zeros((P,), jnp.float32)))
+
+
+def _blend_call(kernel, tile: int, cap: int, bg, alpha_floor: float,
+                out_block: Tuple[int, ...], interpret: bool, *args):
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    T = args[0].shape[0]
+    P = tile * tile
+    specs = [pl.BlockSpec((1, _N_ATTR, cap), lambda i: (i, 0, 0)),
+             pl.BlockSpec((1, 2), lambda i: (i, 0))]
+    specs += [pl.BlockSpec((1, 8, P), lambda i: (i, 0, 0))] * (len(args) - 2)
+    return pl.pallas_call(
+        functools.partial(kernel, tile, cap, tuple(float(c) for c in bg),
+                    float(alpha_floor)),
+        grid=(T,), in_specs=specs,
+        out_specs=pl.BlockSpec(out_block, lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((T,) + out_block[1:], jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(attrs, origin.T)
-    return out[..., 0:3], out[..., 3], out[..., 4]
+        name=kernel.__name__.lstrip("_"),
+    )(*args)
+
+
+def _check_blend_shapes(tile: int, cap: int):
+    if tile * tile & (tile * tile - 1) or cap & (cap - 1):
+        raise ValueError("the kernel blend needs power-of-two tile² and "
+                         f"tile_capacity, got tile={tile}, cap={cap}")
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5))
-def _blend_tiles_pallas(attrs: Array, origin: Array, bg, tile: int,
+def _blend_tiles_kernel(attrs: Array, origin: Array, bg, tile: int,
                         alpha_floor: float, interpret: bool = False
                         ) -> Tuple[Array, Array, Array]:
-    """Differentiable VMEM-local per-tile blend (round 5 — VERDICT r04 #5):
-    the forward is `_blend_tile_kernel`; the backward is a second Pallas
-    kernel (`_blend_tile_bwd_kernel`) instead of the ~70 ms/frame of HBM
-    temporaries the XLA blend materializes, so 3DGS *training* runs the
-    fast path end to end."""
-    return _blend_tiles_pallas_raw(attrs, origin, bg, tile, alpha_floor,
-                                   interpret)
+    """attrs [T, _N_ATTR, K], origin [T, 2] → (rgb [T,P,3], acc [T,P],
+    dep [T,P]) by the Pallas (Triton route) tile blend, with its own
+    backward kernel."""
+    return _blend_fwd(attrs, origin, bg, tile, alpha_floor, interpret)[0]
 
 
 def _blend_fwd(attrs, origin, bg, tile, alpha_floor, interpret):
-    out = _blend_tiles_pallas_raw(attrs, origin, bg, tile, alpha_floor,
-                                  interpret)
-    return out, (attrs, origin)
+    _check_blend_shapes(tile, attrs.shape[2])
+    out = _blend_call(_blend_fwd_kernel, tile, attrs.shape[2], bg,
+                      alpha_floor, (1, 8, tile * tile), interpret,
+                      attrs.astype(jnp.float32), origin.astype(jnp.float32))
+    rgb = jnp.swapaxes(out[:, 0:3], 1, 2)
+    return (rgb, out[:, 3], out[:, 4]), (attrs, origin, out)
 
 
 def _blend_bwd(bg, tile, alpha_floor, interpret, res, g):
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    attrs, origin = res
+    attrs, origin, fwd = res
     g_rgb, g_acc, g_dep = g
-    T, A, cap = attrs.shape
+    T, _, cap = attrs.shape
     P = tile * tile
     gout = jnp.concatenate(
-        [g_rgb.astype(jnp.float32),
-         g_acc[..., None].astype(jnp.float32),
-         g_dep[..., None].astype(jnp.float32),
-         jnp.zeros((T, P, 3), jnp.float32)], axis=-1)           # [T,P,8]
-    dattrs = pl.pallas_call(
-        _ft.partial(_blend_tile_bwd_kernel, tile, cap,
-                    tuple(float(c) for c in bg), alpha_floor),
-        grid=(T,),
-        in_specs=[pl.BlockSpec((1, A, cap), lambda i: (i, 0, 0)),
-                  pl.BlockSpec((2, T), lambda i: (0, 0),
-                               memory_space=pltpu.SMEM),
-                  pl.BlockSpec((1, P, 8), lambda i: (i, 0, 0))],
-        out_specs=pl.BlockSpec((1, A, cap), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((T, A, cap), jnp.float32),
-        interpret=interpret,
-    )(attrs.astype(jnp.float32), origin.astype(jnp.float32).T, gout)
+        [jnp.swapaxes(g_rgb.astype(jnp.float32), 1, 2),
+         g_acc[:, None].astype(jnp.float32),
+         g_dep[:, None].astype(jnp.float32),
+         jnp.zeros((T, 3, P), jnp.float32)], axis=1)           # [T,8,P]
+    dattrs = _blend_call(_blend_bwd_kernel, tile, cap, bg, alpha_floor,
+                         (1, _N_ATTR, cap), interpret,
+                         attrs.astype(jnp.float32),
+                         origin.astype(jnp.float32), fwd, gout)
     return dattrs.astype(attrs.dtype), jnp.zeros_like(origin)
 
 
-_blend_tiles_pallas.defvjp(_blend_fwd, _blend_bwd)
+_blend_tiles_kernel.defvjp(_blend_fwd, _blend_bwd)
 
 
 def rasterize_gaussians_tiled(means: Array, scales: Array, quats: Array,
@@ -475,8 +458,7 @@ def rasterize_gaussians_tiled(means: Array, scales: Array, quats: Array,
     # --- (tile, depth) ordering in ONE multi-key payload sort (reference:
     # one 64-bit radix sort over tile|depth keys). The previous
     # argsort → gather → stable-argsort → gather chain plus an M-element
-    # `searchsorted` all ran at scalar-gather rates on v5e (the lane-gather
-    # rule, DESIGN.md §3 round-3b) and dominated the whole rasterizer.
+    # `searchsorted` is replaced by one sort.
     pair_depth = jnp.broadcast_to(depth[:, None, None],
                                   (n, win, win)).reshape(-1)
     # Pack (tile, depth) into ONE u32 key when tile ids fit ≤ 20 bits:
@@ -501,7 +483,7 @@ def rasterize_gaussians_tiled(means: Array, scales: Array, quats: Array,
     # --- tile ranges → table by GATHER, not scatter: after the sort each
     # tile's entries are CONTIGUOUS, so `first[t]` (1025 binary searches)
     # + a [T, cap] gather replaces the M-element rank/scatter pipeline
-    # (cummax + 8M-slot scatter measured ~46 ms of the 500k-frame).
+    # (cummax + an 8M-slot scatter).
     m_pairs = pair_tile_s.shape[0]
     first = jnp.searchsorted(
         pair_tile_s, jnp.arange(n_tiles + 1, dtype=pair_tile_s.dtype),
@@ -514,7 +496,7 @@ def rasterize_gaussians_tiled(means: Array, scales: Array, quats: Array,
     table = jnp.where(valid_tab,
                       pair_gid_s[jnp.minimum(pos, m_pairs - 1)], n)
 
-    # --- per-tile blend, chunked over tiles to bound VMEM/HBM footprint
+    # --- per-tile blend, chunked over tiles to bound the memory footprint
     pad = lambda a, v: jnp.concatenate([a, jnp.full((1,) + a.shape[1:], v,
                                                     a.dtype)], 0)
     mean2d_p, inv_p = pad(mean2d, 0.0), pad(inv, 0.0)
@@ -564,9 +546,9 @@ def rasterize_gaussians_tiled(means: Array, scales: Array, quats: Array,
         return rgb, acc, dep
 
     if blend_backend in ("pallas", "interpret"):
-        # VMEM-local per-tile blend (fwd-only; see _blend_tile_kernel).
-        # Pre-gather per-(tile,slot) attrs once in XLA — T·K row gathers
-        # (~1 ms at 500k), then zero HBM temporaries inside the kernel.
+        # kernel blend (`_blend_fwd_kernel`): pre-gather per-(tile, slot)
+        # attrs once in XLA (T·K row gathers), then no [P, K] temporaries
+        # in device memory inside the kernel.
         ids = table_pad                                        # [T,K]
         live = (ids < n).astype(jnp.float32)
         mu = mean2d_p[ids]
@@ -580,7 +562,7 @@ def rasterize_gaussians_tiled(means: Array, scales: Array, quats: Array,
         attrs = jnp.concatenate(
             [attrs, jnp.zeros((attrs.shape[0], _N_ATTR - attrs.shape[1],
                                attrs.shape[2]), attrs.dtype)], axis=1)
-        rgb_t, acc_t, dep_t = _blend_tiles_pallas(
+        rgb_t, acc_t, dep_t = _blend_tiles_kernel(
             attrs, origin_pad.astype(jnp.float32),
             tuple(float(c) for c in bg_color), tile,
             alpha_floor, blend_backend == "interpret")

@@ -1,7 +1,7 @@
 """NeRF ray-query strategies.
 
 Reference: nr3d_lib/graphics/nerf/nerf_ray_query.py:29 (march_occ) /
-:190 (march_occ_multi_upsample_compressed). TPU layout: dense [R, S] sample
+:190 (march_occ_multi_upsample_compressed). Layout: dense [R, S] sample
 slabs with validity masks (padding never contributes: alpha forced to 0),
 avoiding the reference's ragged packed buffers on the hot path. The
 "compressed" path drops dead samples before the expensive radiance query via
@@ -86,9 +86,8 @@ def nerf_ray_query_march_occ_compressed(
          `radiance_compression_factor` of the first budget) before the
          radiance query.
 
-    Compaction is ROW-LOCAL (`pack_ops.budget_indices`: per-ray argsort +
-    lane gather) — a global sort/scatter compaction measured 6–7.5 ms per
-    786k samples on v5e and erased the savings; the row form is ≪1 ms.
+    Compaction is ROW-LOCAL (`pack_ops.budget_indices`), not a global
+    sort/scatter over all samples.
     Each ray drops its own tail beyond the budget rather than whole rays.
 
     Truncation semantics (vs the reference's dynamically-sized packed
@@ -157,7 +156,7 @@ def nerf_ray_query_march_occ_multi_upsample_compressed(
     march and the compression (reference: nerf_ray_query.py:190
     nerf_ray_query_march_occ_multi_upsample_compressed).
 
-    Pipeline (dense-slab TPU form of the reference's packed pipeline):
+    Pipeline (dense-slab form of the reference's packed pipeline):
       1. occ-march → budget-compact to B1 = compression_factor·S samples
          (optionally union'd with `n_coarse` uniform coarse samples — the
          reference's combine_marched_and_coarse);

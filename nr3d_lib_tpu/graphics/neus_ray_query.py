@@ -3,7 +3,7 @@
 Reference: nr3d_lib/graphics/neus/neus_ray_query.py:132 (coarse_multi_upsample)
 / :358 (march_occ_multi_upsample, StreetSurf §4.1) / :732 (compressed).
 
-TPU layout: dense [R, S] slabs. Invalid slots carry t=far and sdf=+BIG so
+Layout: dense [R, S] slabs. Invalid slots carry t=far and sdf=+BIG so
 their alphas vanish; merging upsample rounds is a per-ray sort (the
 reference's merge_two_packs_sorted_aligned becomes `jnp.sort` on the slab).
 """
@@ -39,10 +39,9 @@ def _upsample_rounds(sdf_fn, o_n, d_n, t, valid, far, inv_s_base,
     (`with torch.no_grad()` around the upsample loop): the per-round SDF
     queries then run forward-only — XLA dead-code-eliminates their
     backward, which would otherwise re-run the encode backward over every
-    upsample round's samples inside each train step (measured 350 ms/step
-    → see bench train_step_neus_brick_krays).
+    upsample round's samples inside each train step.
 
-    Round-5: SDF values are CACHED across rounds like the reference
+    SDF values are CACHED across rounds like the reference
     (`sdf_iter[pidx1] = forward_sdf(x_fine)` — neus_ray_query.py:533:
     only the round's NEW importance samples hit the network; cached
     values ride the merge sort as a payload). Previously every round
@@ -52,9 +51,7 @@ def _upsample_rounds(sdf_fn, o_n, d_n, t, valid, far, inv_s_base,
     r = t.shape[0]
 
     def sort_tvs(t_, valid_, sdf_):
-        # lax.sort with payloads — argsort + take_along_axis would
-        # scalarize the lane gathers on TPU (same pathology as the
-        # budget compaction; see pack_ops.dense_to_budgeted)
+        # lax.sort with payloads (one sort instead of argsort + gathers)
         key = jnp.where(valid_, t_, jnp.inf)
         key_s, v_s, sdf_s = jax.lax.sort(
             (key, valid_.astype(jnp.int32), sdf_), num_keys=1,

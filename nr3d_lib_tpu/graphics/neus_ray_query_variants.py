@@ -5,7 +5,7 @@ fields_dynamic/neus/renderer_mixin.py:76 (NeusRendererMixinDynamic query),
 fields_conditional/neus/renderer_mixin.py:25 (NeuSRendererMixinBatched).
 
 The compressed variant drops samples whose accumulated transmittance is
-below threshold *before* the expensive radiance/nablas query — on TPU this
+below threshold *before* the expensive radiance/nablas query — here this
 is pack-compaction into a smaller static-capacity buffer rather than the
 reference's `packed_volume_render_compression` resize.
 """
@@ -85,9 +85,8 @@ def neus_ray_query_march_occ_multi_upsample_compressed(
         axis=-1)
     keep = valid & (trans_excl > early_stop_eps) & (alpha > 0)
 
-    # ROW-LOCAL budgeted compaction (pack_ops.budget_indices — global
-    # sort/scatter compaction measured 6-7.5 ms per 786k samples on v5e;
-    # the per-ray argsort+lane-gather form is ≪1 ms). The samples dropped
+    # ROW-LOCAL budgeted compaction (pack_ops.budget_indices, not a global
+    # sort/scatter over all samples). The samples dropped
     # beyond each ray's budget are its lowest-transmittance tail; a
     # saturated buffer can never drop whole far rays.
     b1 = max(int(s * compression_factor), 1)

@@ -1,6 +1,6 @@
 """pack_ops — segment ("pack") operators over ragged per-ray sample buffers.
 
-TPU-native re-design of the reference's CUDA pack_ops
+Re-design of the reference's CUDA pack_ops
 (reference: nr3d_lib/graphics/pack_ops/pack_ops.py:16-744 and
 csrc/pack_ops/pack_ops_cuda.cu). The reference stores ragged per-ray samples
 as one flat buffer + ``pack_infos [N_packs, 2] = (first_idx, length)``. Here
@@ -13,7 +13,7 @@ raggedness maps onto **static-capacity** flat buffers:
   * samples of a pack are contiguous and packs are ascending — after any
     `compactify`/`packed_sort` this invariant holds with padding at the end.
 
-Reductions lower to `jax.ops.segment_*` (XLA scatter-add — fast on TPU);
+Reductions lower to `jax.ops.segment_*` (XLA scatter-add);
 cumulative ops lower to segmented `associative_scan`; per-pack broadcasting
 is a gather. Everything is differentiable by construction — the reference's
 hand-written backward kernels (e.g. cumprod backward via the reverse-cumsum
@@ -420,7 +420,7 @@ def compactify(keep: Array, arrays: Sequence[Array], ridx: Array, n_packs: int,
     """Order-preserving compaction of packed buffers.
 
     Drops samples where ``keep`` is False; result keeps the pack-contiguous
-    invariant with padding (ridx==n_packs) at the end. This is the TPU
+    invariant with padding (ridx==n_packs) at the end. This is the
     replacement for every CUDA "two-round count+fill" pattern.
     """
     n = keep.shape[0]
@@ -469,12 +469,10 @@ def budget_indices(mask: Array, budget: int) -> Tuple[Array, Array]:
     come back as idx 0 with valid=False (the all-zero one-hot row sums to
     0) — callers MUST mask on `valid`, never consume idx where it is False.
 
-    mask [R, S] → (idx [R, B] int32, valid [R, B] bool). The TPU-fast
+    mask [R, S] → (idx [R, B] int32, valid [R, B] bool). The
     compaction primitive, fully vectorized and branch-free: per-row rank =
     cumsum, then idx[r, j] = Σ_k k·1[rank(r,k) == j+1] — a compare+reduce
-    over [R, S, B] that XLA fuses on the VPU. Measured ladder for
-    budgeting 786k samples on v5e: global sort/scatter compaction 5.9–7.5
-    ms → per-row argsort ≈ 6 ms → this form ≪1 ms. Use with
+    over [R, S, B] that XLA fuses. Use with
     `take_along_axis` to budget-compact any per-sample array while keeping
     [R, B] shape (order within a row is preserved)."""
     hit, valid = _budget_onehot(mask, budget)
@@ -502,12 +500,11 @@ def dense_to_budgeted(arrays: Sequence[Array], mask: Array, budget: int
     """Budget-compact several [R, S, ...] arrays row-locally → [R, B, ...]
     (+ valid [R, B]). See `budget_indices`.
 
-    The extraction itself is a one-hot contraction (MXU / full-lane VPU),
-    NOT take_along_axis: the [R,S]→[R,B] lane gather scalarizes on TPU
-    (measured 8.4 ms for 2×786k extractions inside the compressed NeRF
-    query vs ~1 ms for the einsum form). Exactness: each f32 output is a
+    The extraction itself is a one-hot contraction, not take_along_axis
+    (a plain gather is the candidate to measure against it on the GPU).
+    Exactness: each f32 output is a
     dot with a single 1.0 coefficient; HIGHEST precision keeps f32 values
-    bit-clean through the MXU. Integer arrays are contracted as two 16-bit
+    bit-clean through the matmul units. Integer arrays are contracted as two 16-bit
     halves of their 32-bit pattern (each half < 2^16, exactly representable
     in f32) and recombined — exact for the FULL int32 range, signed
     included, not just |v| < 2^24. Slots past a row's population count come
@@ -586,9 +583,8 @@ def merge_two_batch(valsA: Array, keyA: Array, valsB: Array, keyB: Array
     is_b = jnp.concatenate([jnp.zeros_like(keyA, jnp.int32),
                             jnp.ones_like(keyB, jnp.int32)], -1)
     vals = jnp.concatenate([valsA, valsB], axis=-2 if valsA.ndim > 2 else -1)
-    # payload sort, NOT argsort + take_along_axis: lane-axis gathers
-    # scalarize on TPU (DESIGN.md §3 round-3b); feature channels ride as
-    # extra payload operands
+    # payload sort, not argsort + take_along_axis; feature channels ride
+    # as extra payload operands
     if vals.ndim == key.ndim:
         key_s, is_b_s, vals_s = jax.lax.sort((key, is_b, vals), num_keys=1,
                                              is_stable=True)

@@ -1,20 +1,19 @@
 """Ray-marching return structures + wrapper API.
 
 Reference: nr3d_lib/graphics/raymarch/__init__.py:10-60 (RaymarchRet
-dataclass family) + occgrid_raymarch.py:25,114,223. The TPU layouts are
+dataclass family) + occgrid_raymarch.py:25,114,223. The layouts are
 dense [R, S] slabs (+ masks) rather than ragged packs; `to_packed()`
 compacts when the ragged form is wanted.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from nr3d_lib_tpu.nn import pytree_dataclass
 from nr3d_lib_tpu.ops.occgrid_march import (occgrid_march_batched_dense,
                                             occgrid_march_dense)
 
@@ -24,7 +23,7 @@ __all__ = ["RaymarchRetSingle", "RaymarchRetBatched", "RaymarchRetForest",
 Array = jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class RaymarchRetSingle:
     """(reference: RaymarchRetSingle) dense [R,S] samples + validity."""
 
@@ -49,12 +48,12 @@ class RaymarchRetSingle:
         return t_flat, dt_flat, ridx
 
 
-@struct.dataclass
+@pytree_dataclass
 class RaymarchRetBatched(RaymarchRetSingle):
     bidx: Array = None
 
 
-@struct.dataclass
+@pytree_dataclass
 class RaymarchRetForest(RaymarchRetSingle):
     block_inds: Array = None
 

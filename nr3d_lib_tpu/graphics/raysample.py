@@ -2,7 +2,7 @@
 
 Reference: nr3d_lib/graphics/raysample.py (batch_sample_pdf:262,
 packed_sample_cdf:38, step samplers :285-364). Dense [R, S] layouts are the
-TPU-native primary; packed variants delegate to pack_ops.
+Dense slabs primary; packed variants delegate to pack_ops.
 """
 
 from __future__ import annotations
@@ -88,11 +88,10 @@ def batch_sample_cdf(bins: Array, cdfs: Array, n_samples: int,
     else:
         u = jax.random.uniform(perturb_key, (r, n_samples), bins.dtype,
                                minval=eps, maxval=1.0 - eps)
-    # TPU layout: B lives in the 128-lane dim, so searchsorted(right) is a
-    # full-lane count of cdf <= u, and the bracketing (cdf, bin) pairs come
-    # out of one-hot einsums — a vmapped binary search + take_along_axis
-    # here scalarizes into per-element gathers (same pathology as
-    # pack_ops.dense_to_budgeted; this runs every NeuS upsample round).
+    # searchsorted(right) is a count of cdf <= u, and the bracketing
+    # (cdf, bin) pairs come out of one-hot einsums instead of a vmapped
+    # binary search + take_along_axis (this runs every NeuS upsample
+    # round; which form is faster on the GPU is not measured yet).
     nb = bins.shape[-1]
     cnt = jnp.sum((cdfs[:, None, :] <= u[:, :, None]).astype(jnp.int32),
                   axis=-1)                                    # [R, I]

@@ -1,9 +1,9 @@
 """Sphere tracing for neural SDFs.
 
-TPU-native re-design of the reference's persistent CUDA tracer
+Re-design of the reference's persistent CUDA tracer
 (reference: csrc/sphere_trace/ + nr3d_lib/graphics/sphere_trace.py:22-120).
 The CUDA version ping-pongs host↔device per iteration with a Python SDF
-callback and compacts alive rays to keep occupancy high. On TPU the whole
+callback and compacts alive rays to keep occupancy high. Here the whole
 trace is ONE `lax.while_loop` with the SDF net inlined; "compaction" is lane
 masking — idle lanes cost nothing extra because the batch shape is static
 (SURVEY.md §3.4 translation note).

@@ -2,7 +2,7 @@
 
 The reference ships a kaolin-wisp OpenGL/imgui/pycuda interactive viewer
 (reference: nr3d_lib/gui/ — NR3DKaolinWispRenderer gui/neural_renderer.py:
-18-55 bridges model.ray_query → RGBA/depth buffers). A TPU pod has no
+18-55 bridges model.ray_query → RGBA/depth buffers). An accelerator host has no
 display; the equivalent surface here is an offline renderer with the same
 bridge (model.ray_query → image buffers) producing stills, turntable image
 sequences, and mp4/gif when imageio/ffmpeg exist.

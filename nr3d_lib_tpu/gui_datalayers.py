@@ -1,7 +1,7 @@
 """Debug data-layers: live model/accel state → named line-set geometry.
 
 Reference: nr3d_lib/gui/datalayers/ (occgrid_layers.py, forest_layers.py,
-octree_layers.py) — the interactive viewer's debug overlays. A TPU host has
+octree_layers.py) — the interactive viewer's debug overlays. An accelerator host has
 no display, so layers here return plain ``{"name", "points", "edges",
 "color"}`` dicts that feed ``plot.plot_lineset`` (matplotlib), any
 open3d/vedo ``LineSet`` downstream, or file export — the same geometry the

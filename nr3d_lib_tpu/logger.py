@@ -1,6 +1,6 @@
 """Experiment logger: scalars/images/figures/meshes → tensorboard + files.
 
-TPU-native equivalent of the reference `Logger` (nr3d_lib/logger.py:43-217):
+Equivalent of the reference `Logger` (nr3d_lib/logger.py:43-217):
 master-rank-only writing, tensorboard backend when available (torch's
 SummaryWriter is CPU-only here and fine), plus a JSONL scalar fallback that
 never needs extra deps. Multi-process: only the master writes

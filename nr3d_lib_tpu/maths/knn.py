@@ -4,7 +4,7 @@ Reference: externals/pytorch3d_knn (N9: knn_points/knn_gather,
 maths/pytorch3d_knn.py:130,216), externals/simple_knn (N10: distCUDA2 —
 mean 3-NN distance for 3DGS init), maths/chamfer_distance.py:8.
 
-TPU design: brute-force distance matrices in tiles — on the MXU this is
+Design: brute-force distance matrices in tiles — as matmuls this is
 `x·yᵀ` plus norms, which beats clever spatial structures for the sizes the
 reference targets (≤ ~1e5 points) and is fully differentiable.
 """
@@ -22,7 +22,7 @@ Array = jax.Array
 
 
 def _sq_dists(x: Array, y: Array) -> Array:
-    """[N,D]×[M,D] → [N,M] squared distances via the MXU."""
+    """[N,D]×[M,D] → [N,M] squared distances via one matmul."""
     xx = jnp.sum(x * x, -1, keepdims=True)
     yy = jnp.sum(y * y, -1, keepdims=True)
     xy = x @ y.T
@@ -36,7 +36,7 @@ def knn_points(x: Array, y: Array, k: int = 1, chunk: int = 8192,
 
     Batched ([B,N,D]) or flat ([N,D]). Reference: knn_points_idx.
 
-    Selection is approximate-then-exact: the MXU expansion picks
+    Selection is approximate-then-exact: the matmul expansion picks
     `k + candidate_margin` candidates, exact coordinate-difference
     distances rank them. The expansion's f32 cancellation error scales
     with ‖x‖·‖y‖, so both clouds are shifted by a shared centroid first

@@ -5,7 +5,7 @@ getter.py:68-131}. The CUDA version keeps a float value grid updated by EMA
 from periodic net queries + samples collected during training, thresholded
 into a binary occupancy bitfield consumed by the ray marcher.
 
-TPU design: the grids are plain nnx state arrays updated *functionally*
+Design: the grids are plain module state arrays updated *functionally*
 inside jitted update steps; "collect samples" is a scatter-max. No bitfield
 packing — XLA bool arrays are cheap and the marcher gathers directly.
 """
@@ -17,7 +17,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 __all__ = ["OccGridEma", "OccGridGetter", "cell_centers", "sample_cells_uniform"]
 
@@ -42,7 +42,7 @@ def sample_cells_uniform(key, resolution: Sequence[int], n: int, dtype=jnp.float
     return idx, x
 
 
-class OccGridEma(nnx.Module):
+class OccGridEma(nn.Module):
     """EMA-decayed value grid thresholded to binary occupancy.
 
     Mirrors reference behavior (ema_single.py):
@@ -65,8 +65,8 @@ class OccGridEma(nnx.Module):
         self.n_jump = int(n_jump)  # warmup iters where everything stays occupied
         init_val = float((init_cfg or {}).get("mode_kwargs", {}).get("constant", 1.0)) \
             if init_cfg else 1.0
-        self.val_grid = nnx.Variable(jnp.full(self.resolution, init_val, dtype))
-        self.it = nnx.Variable(jnp.zeros((), jnp.int32))
+        self.val_grid = nn.Variable(jnp.full(self.resolution, init_val, dtype))
+        self.it = nn.Variable(jnp.zeros((), jnp.int32))
 
     # -------------------------------------------------------------- query
     def occ(self) -> Array:
@@ -154,7 +154,7 @@ class OccGridEma(nnx.Module):
         self.it[...] = jnp.asarray(sd["it"])
 
 
-class OccGridGetter(nnx.Module):
+class OccGridGetter(nn.Module):
     """Direct re-query occupancy without EMA (reference: getter.py:68-131)."""
 
     def __init__(self, resolution=(64, 64, 64), occ_thre: float = 0.01,
@@ -163,7 +163,7 @@ class OccGridGetter(nnx.Module):
             resolution = (int(resolution),) * 3
         self.resolution = tuple(int(r) for r in resolution)
         self.occ_thre = float(occ_thre)
-        self.occ_grid = nnx.Variable(jnp.ones(self.resolution, bool))
+        self.occ_grid = nn.Variable(jnp.ones(self.resolution, bool))
         self._dtype = dtype
 
     def occ(self) -> Array:

@@ -12,7 +12,7 @@ from typing import Callable, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.accelerations.occgrid import OccGridEma, OccGridGetter
 
@@ -21,7 +21,7 @@ __all__ = ["OccGridAccel"]
 Array = jax.Array
 
 
-class OccGridAccel(nnx.Module):
+class OccGridAccel(nn.Module):
     def __init__(self, space=None, *, resolution=(64, 64, 64), occ_thre: float = 0.01,
                  ema_decay: float = 0.95, update_every: int = 16,
                  warmup_iters: int = 256, use_ema: bool = True,

@@ -13,7 +13,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.accelerations.occgrid import sample_cells_uniform
 
@@ -23,7 +23,7 @@ __all__ = ["OccGridEmaBatched", "OccGridAccelBatched", "OccGridAccelDynamic",
 Array = jax.Array
 
 
-class OccGridEmaBatched(nnx.Module):
+class OccGridEmaBatched(nn.Module):
     """[B, r, r, r] EMA value grids (reference: ema_batched.py:309)."""
 
     def __init__(self, n_batch: int, resolution=(32, 32, 32),
@@ -35,7 +35,7 @@ class OccGridEmaBatched(nnx.Module):
         self.resolution = tuple(int(r) for r in resolution)
         self.occ_thre = float(occ_thre)
         self.ema_decay = float(ema_decay)
-        self.val_grid = nnx.Variable(
+        self.val_grid = nn.Variable(
             jnp.ones((n_batch,) + self.resolution, dtype))
 
     def occ(self) -> Array:
@@ -73,7 +73,7 @@ class OccGridEmaBatched(nnx.Module):
         self.val_grid[...] = jnp.asarray(sd["val_grid"])
 
 
-class OccGridAccelBatched(nnx.Module):
+class OccGridAccelBatched(nn.Module):
     """Per-instance accel (reference: occgrid_accel/batched.py:293
     OccGridAccelBatched_Ema)."""
 
@@ -117,7 +117,7 @@ class OccGridAccelDynamic(OccGridAccelBatched):
         super().__init__(n_time_keys, **kw)
         ts = jnp.asarray(ts_keyframes if ts_keyframes is not None
                          else jnp.linspace(-1, 1, n_time_keys))
-        self.ts_keyframes = nnx.Variable(ts)
+        self.ts_keyframes = nn.Variable(ts)
 
     def time_to_key(self, ts: Array) -> Array:
         keys = self.ts_keyframes[...]
@@ -129,7 +129,7 @@ class OccGridAccelDynamic(OccGridAccelBatched):
                               perturb_key)
 
 
-class OccGridAccelStaticAndDynamic(nnx.Module):
+class OccGridAccelStaticAndDynamic(nn.Module):
     """Static grid ∪ dynamic time-keyed grids (reference:
     occgrid_accel OccGridAccelStaticAndDynamic)."""
 
@@ -152,7 +152,7 @@ class OccGridAccelStaticAndDynamic(nnx.Module):
         self.dynamic.load_state_dict(sd["dynamic"])
 
 
-class OccGridAccelBatchedDynamic(nnx.Module):
+class OccGridAccelBatchedDynamic(nn.Module):
     """Instances × time keys occupancy (reference:
     occgrid_accel/batched_dynamic.py:374 OccGridAccelBatchedDynamic_Ema):
     grid slot (b, k) = instance b at keyframe k; flattened into one
@@ -169,7 +169,7 @@ class OccGridAccelBatchedDynamic(nnx.Module):
                                      occ_thre, ema_decay)
         ts = jnp.asarray(ts_keyframes if ts_keyframes is not None
                          else jnp.linspace(-1, 1, n_time_keys))
-        self.ts_keyframes = nnx.Variable(ts)
+        self.ts_keyframes = nn.Variable(ts)
         self.update_every = int(update_every)
         self.step_size = float(step_size)
         self.max_steps_per_ray = int(max_steps_per_ray)

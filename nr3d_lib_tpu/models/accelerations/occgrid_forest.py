@@ -19,7 +19,7 @@ from typing import Callable, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.accelerations.occgrid_batched import OccGridEmaBatched
 
@@ -28,7 +28,7 @@ __all__ = ["OccGridAccelForest"]
 Array = jax.Array
 
 
-class OccGridAccelForest(nnx.Module):
+class OccGridAccelForest(nn.Module):
     """Per-block occupancy grids, block slots shared with the forest space.
 
     query_fn signature for updates: query_fn(x_world [B,n,3]) → vals [B,n]

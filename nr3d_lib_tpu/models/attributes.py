@@ -8,8 +8,8 @@ interp1d` (transform.py:62-385); camera-intrinsics family with a common
 lift/proj API (camera_param.py:62-538); `Segment` validity intervals
 (segment.py:92).
 
-TPU-native design: attributes are registered pytrees (`flax.struct`
-dataclasses) — they slice/stack with jax tree ops, pass through jit
+Design: attributes are registered pytrees (`nn.pytree_dataclass`
+frozen dataclasses) — they slice/stack with jax tree ops, pass through jit
 unchanged, and are optimizable (pose refinement) by making them leaves of
 the param tree.
 """
@@ -20,12 +20,12 @@ from typing import Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from nr3d_lib_tpu.maths.slerp import slerp
 from nr3d_lib_tpu.maths.transforms import (
     axis_angle_to_quaternion, matrix_to_quaternion, quaternion_to_matrix,
     rotation_6d_to_matrix)
+from nr3d_lib_tpu.nn import pytree_dataclass, static_field
 
 __all__ = [
     "RotationQuaternion", "RotationAxisAngle", "Rotation6D", "RotationMat3x3",
@@ -52,7 +52,7 @@ class _RotBase:
         return jnp.einsum("...ji,...j->...i", self.mat_3x3(), v)
 
 
-@struct.dataclass
+@pytree_dataclass
 class RotationQuaternion(_RotBase):
     q: Array  # [..., 4] (w,x,y,z)
 
@@ -67,7 +67,7 @@ class RotationQuaternion(_RotBase):
         return cls(matrix_to_quaternion(m))
 
 
-@struct.dataclass
+@pytree_dataclass
 class RotationAxisAngle(_RotBase):
     aa: Array  # [..., 3]
 
@@ -75,7 +75,7 @@ class RotationAxisAngle(_RotBase):
         return quaternion_to_matrix(axis_angle_to_quaternion(self.aa))
 
 
-@struct.dataclass
+@pytree_dataclass
 class Rotation6D(_RotBase):
     d6: Array  # [..., 6]
 
@@ -83,7 +83,7 @@ class Rotation6D(_RotBase):
         return rotation_6d_to_matrix(self.d6)
 
 
-@struct.dataclass
+@pytree_dataclass
 class RotationMat3x3(_RotBase):
     m: Array  # [..., 3, 3]
 
@@ -108,7 +108,7 @@ class _TransformBase:
         return jnp.einsum("...ij,...j->...i", self.mat_3x4()[..., :3], v)
 
 
-@struct.dataclass
+@pytree_dataclass
 class TransformRT(_TransformBase):
     """rotation (quaternion) + translation (reference transform.py RT)."""
 
@@ -135,7 +135,7 @@ class TransformRT(_TransformBase):
         return cls(matrix_to_quaternion(m[..., :3, :3]), m[..., :3, 3])
 
 
-@struct.dataclass
+@pytree_dataclass
 class TransformMat4x4(_TransformBase):
     m: Array  # [..., 4, 4]
 
@@ -156,7 +156,7 @@ class TransformMat4x4(_TransformBase):
         return TransformMat4x4(jnp.concatenate([top, bottom], -2))
 
 
-@struct.dataclass
+@pytree_dataclass
 class TransformExpSE3(_TransformBase):
     """se(3) exponential-map pose: unit screw axis (w, v) and angle θ —
     the pose-refinement parameterization (reference: transform.py:341
@@ -196,7 +196,7 @@ class TransformExpSE3(_TransformBase):
         return TransformRT(matrix_to_quaternion(rot), trans)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scale:
     """Per-axis scale attr (reference attr scale family)."""
 
@@ -230,7 +230,7 @@ class _IntrBase:
         return pinhole_project(x_cam, self.mat_3x3())
 
 
-@struct.dataclass
+@pytree_dataclass
 class PinholeCameraIntrinsics(_IntrBase):
     """(fx, fy, cx, cy) + image size (reference camera_param.py Pinhole)."""
 
@@ -238,8 +238,8 @@ class PinholeCameraIntrinsics(_IntrBase):
     fy: Array
     cx: Array
     cy: Array
-    H: int = struct.field(pytree_node=False, default=0)
-    W: int = struct.field(pytree_node=False, default=0)
+    H: int = static_field(default=0)
+    W: int = static_field(default=0)
 
     @classmethod
     def from_mat(cls, mat: Array, H: int = 0, W: int = 0):
@@ -253,15 +253,15 @@ class PinholeCameraIntrinsics(_IntrBase):
                                        int(self.H // factor), int(self.W // factor))
 
 
-@struct.dataclass
+@pytree_dataclass
 class PinholeCameraMatHW(_IntrBase):
     """Full 3×3 matrix parameterization (reference camera_param.py:292
     PinholeCameraMatHW — the fifth pinhole form): the matrix IS the
     parameter (skewed/refined K supported), fx/fy/cx/cy are views."""
 
     mat: Array                      # [..., 3, 3]
-    H: int = struct.field(pytree_node=False, default=0)
-    W: int = struct.field(pytree_node=False, default=0)
+    H: int = static_field(default=0)
+    W: int = static_field(default=0)
 
     def mat_3x3(self) -> Array:
         return self.mat
@@ -289,7 +289,7 @@ class PinholeCameraMatHW(_IntrBase):
                                   int(self.W // factor))
 
 
-@struct.dataclass
+@pytree_dataclass
 class PinholeCameraHWF(_IntrBase):
     """Single shared focal length (reference camera_param.py:403
     PinholeCameraHWF). fx = fy = f."""
@@ -297,8 +297,8 @@ class PinholeCameraHWF(_IntrBase):
     f: Array
     cx: Array
     cy: Array
-    H: int = struct.field(pytree_node=False, default=0)
-    W: int = struct.field(pytree_node=False, default=0)
+    H: int = static_field(default=0)
+    W: int = static_field(default=0)
 
     @property
     def fx(self):
@@ -309,7 +309,7 @@ class PinholeCameraHWF(_IntrBase):
         return self.f
 
 
-@struct.dataclass
+@pytree_dataclass
 class PinholeCameraHWFRatio(_IntrBase):
     """Focal stored as a ratio of image size (reference camera_param.py:367
     PinholeCameraHWFxyRatio): fx = rx·W, fy = ry·H — resolution-invariant,
@@ -319,8 +319,8 @@ class PinholeCameraHWFRatio(_IntrBase):
     ry: Array
     cx: Array
     cy: Array
-    H: int = struct.field(pytree_node=False, default=0)
-    W: int = struct.field(pytree_node=False, default=0)
+    H: int = static_field(default=0)
+    W: int = static_field(default=0)
 
     @property
     def fx(self):
@@ -331,7 +331,7 @@ class PinholeCameraHWFRatio(_IntrBase):
         return self.ry * self.H
 
 
-@struct.dataclass
+@pytree_dataclass
 class PinholeCameraHWFExp(_IntrBase):
     """Log-focal parameterization (reference camera_param.py:119
     FocalRatioExp): fx = exp(log_fx) — keeps a refined focal positive with
@@ -341,8 +341,8 @@ class PinholeCameraHWFExp(_IntrBase):
     log_fy: Array
     cx: Array
     cy: Array
-    H: int = struct.field(pytree_node=False, default=0)
-    W: int = struct.field(pytree_node=False, default=0)
+    H: int = static_field(default=0)
+    W: int = static_field(default=0)
 
     @property
     def fx(self):
@@ -353,7 +353,7 @@ class PinholeCameraHWFExp(_IntrBase):
         return jnp.exp(self.log_fy)
 
 
-@struct.dataclass
+@pytree_dataclass
 class OpenCVCameraIntrinsics(PinholeCameraIntrinsics):
     """Pinhole + OpenCV distortion (reference camera_param.py OpenCV)."""
 
@@ -379,7 +379,7 @@ class OpenCVCameraIntrinsics(PinholeCameraIntrinsics):
         return jnp.concatenate([xn * z[..., None], z[..., None]], -1)
 
 
-@struct.dataclass
+@pytree_dataclass
 class FisheyeCameraIntrinsics(PinholeCameraIntrinsics):
     """Pinhole + equidistant fisheye (reference camera_param.py Fisheye)."""
 
@@ -405,7 +405,7 @@ class FisheyeCameraIntrinsics(PinholeCameraIntrinsics):
         return jnp.concatenate([xn * z[..., None], z[..., None]], -1)
 
 
-@struct.dataclass
+@pytree_dataclass
 class OrthoCameraIntrinsics(_IntrBase):
     """Orthographic (reference camera_param.py Ortho)."""
 
@@ -413,8 +413,8 @@ class OrthoCameraIntrinsics(_IntrBase):
     sy: Array
     cx: Array
     cy: Array
-    H: int = struct.field(pytree_node=False, default=0)
-    W: int = struct.field(pytree_node=False, default=0)
+    H: int = static_field(default=0)
+    W: int = static_field(default=0)
 
     def lift(self, uv: Array, depth: Optional[Array] = None) -> Array:
         z = jnp.ones_like(uv[..., 0]) if depth is None else depth
@@ -431,7 +431,7 @@ class OrthoCameraIntrinsics(_IntrBase):
 # ----------------------------------------------------------- attr utilities
 # The reference's AttrNested framework (attr.py:38-247) gives every
 # attribute slicing / stacking / interp over arbitrary batch prefixes via
-# per-class bookkeeping. Attributes here are flax.struct pytrees, so the
+# per-class bookkeeping. Attributes here are dataclass pytrees, so the
 # same operations are four generic tree functions working on ANY attr —
 # including nested containers (dicts/tuples of attrs).
 
@@ -464,7 +464,7 @@ def attr_interp1d(a, b, alpha):
         return type(a)(attr_interp1d(x, y, alpha) for x, y in zip(a, b))
     if isinstance(a, (jax.Array, jnp.ndarray)) or not hasattr(a, "__dict__"):
         return a * (1 - alpha) + b * alpha
-    # struct.dataclass without custom interp1d: recurse field-wise
+    # pytree dataclass without custom interp1d: recurse field-wise
     fields = {k: attr_interp1d(getattr(a, k), getattr(b, k), alpha)
               for k, leaf in vars(a).items()
               if isinstance(leaf, (jax.Array, jnp.ndarray))}
@@ -472,7 +472,7 @@ def attr_interp1d(a, b, alpha):
 
 
 # ------------------------------------------------------------------ segment
-@struct.dataclass
+@pytree_dataclass
 class Segment:
     """Validity interval per entity (reference segment.py:92): an entity
     exists for frame indices in [start, stop)."""

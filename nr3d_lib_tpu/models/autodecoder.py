@@ -11,7 +11,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.embeddings import Embedding
 
@@ -20,7 +20,7 @@ __all__ = ["AutoDecoderMixin"]
 Array = jax.Array
 
 
-class AutoDecoderMixin(nnx.Module):
+class AutoDecoderMixin(nn.Module):
     """Compose with a conditional field: owns the per-instance latents.
 
     Usage: subclass/compose, call `get_latent(ins_inds)` and feed the result

@@ -1,7 +1,7 @@
 """MLP blocks (reference: nr3d_lib/models/blocks/mlp.py:27-168, models/layers.py).
 
-nnx modules with bf16-friendly compute: params live in fp32, the forward
-optionally casts to a compute dtype (TPU bf16 replaces the reference's fp16 +
+nn modules with bf16-friendly compute: params live in fp32, the forward
+optionally casts to a compute dtype (bf16 replaces the reference's fp16 +
 loss-scaling; SURVEY.md §7 table).
 
 Includes the init schemes the fields depend on:
@@ -18,7 +18,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 __all__ = ["get_nonlinearity", "MLP", "LipshitzMLP", "get_blocks"]
 
@@ -75,7 +75,7 @@ def _init_linear(key, n_in: int, n_out: int, *, activation: str, is_first: bool,
     return w, b
 
 
-class MLP(nnx.Module):
+class MLP(nn.Module):
     """Plain MLP with optional skip connections.
 
     reference: blocks/mlp.py:27 (MLP) / :130 (MLPNet with skips).
@@ -89,7 +89,7 @@ class MLP(nnx.Module):
                  geometric_init: bool = False, radius_init: float = 0.5,
                  sine_w0: float = 30.0,
                  compute_dtype=None, param_dtype=jnp.float32,
-                 rngs: Optional[nnx.Rngs] = None, seed: int = 0):
+                 rngs: Optional[nn.Rngs] = None, seed: int = 0):
         key = (rngs.params() if rngs is not None else jax.random.key(seed))
         self.in_features = in_features
         self.out_features = out_features
@@ -111,10 +111,10 @@ class MLP(nnx.Module):
                                 geometric_init=geometric_init,
                                 radius_init=radius_init, sine_w0=sine_w0,
                                 dtype=param_dtype)
-            ws.append(nnx.Param(w))
-            bs.append(nnx.Param(b))
-        self.ws = nnx.List(ws)
-        self.bs = nnx.List(bs)
+            ws.append(nn.Param(w))
+            bs.append(nn.Param(b))
+        self.ws = nn.List(ws)
+        self.bs = nn.List(bs)
 
     def __call__(self, x: Array) -> Array:
         cdt = self.compute_dtype or x.dtype
@@ -144,14 +144,14 @@ class MLP(nnx.Module):
             for w in self.ws])
 
 
-class LipshitzMLP(nnx.Module):
+class LipshitzMLP(nn.Module):
     """MLP with learnable per-layer Lipschitz bound c_i; weights are row-wise
     rescaled so ‖W‖∞ ≤ softplus(c_i) (reference: blocks/mlp.py:168)."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  D: int = 4, W: int = 128, activation: str = "relu",
                  output_activation: Optional[str] = None,
-                 param_dtype=jnp.float32, rngs: Optional[nnx.Rngs] = None,
+                 param_dtype=jnp.float32, rngs: Optional[nn.Rngs] = None,
                  seed: int = 0):
         key = (rngs.params() if rngs is not None else jax.random.key(seed))
         self.activation = get_nonlinearity(activation)
@@ -164,11 +164,11 @@ class LipshitzMLP(nnx.Module):
                                 is_first=(i == 0), is_last=(i == len(dims) - 2),
                                 geometric_init=False, radius_init=0.0,
                                 sine_w0=30.0, dtype=param_dtype)
-            ws.append(nnx.Param(w))
-            bs.append(nnx.Param(b))
+            ws.append(nn.Param(w))
+            bs.append(nn.Param(b))
             ci = jnp.max(jnp.sum(jnp.abs(w), axis=0))
-            cs.append(nnx.Param(jnp.log(jnp.exp(ci) - 1.0 + 1e-6)[None]))
-        self.ws, self.bs, self.cs = nnx.List(ws), nnx.List(bs), nnx.List(cs)
+            cs.append(nn.Param(jnp.log(jnp.exp(ci) - 1.0 + 1e-6)[None]))
+        self.ws, self.bs, self.cs = nn.List(ws), nn.List(bs), nn.List(cs)
 
     def lipshitz_bound_full(self) -> Array:
         out = 1.0
@@ -193,8 +193,8 @@ class LipshitzMLP(nnx.Module):
 
 
 def get_blocks(in_features: int, out_features: int, *, type: str = "mlp", **kwargs):
-    """Block factory (reference: blocks/__init__.py:3-16 get_blocks; the tcnn
-    fallback is irrelevant on TPU — everything lowers to MXU matmuls)."""
+    """Block factory (reference: blocks/__init__.py:3-16 get_blocks; every
+    block lowers to XLA matmuls, so there is no tcnn variant)."""
     t = type.lower()
     if t in ("mlp", "fcblock"):
         return MLP(in_features, out_features, **kwargs)

@@ -3,7 +3,7 @@
 Reference: nr3d_lib/models/embedders/__init__.py:8-40 (get_embedder factory),
 externals/shencoder (N7: SH fwd/bwd CUDA), externals/freqencoder (N8),
 embedders/sinusoidal_pytorch.py:21-87 (SinusoidalEmbedder + Annealed).
-On TPU these are pure closed-form math — XLA fuses them into the consuming
+These are pure closed-form math — XLA fuses them into the consuming
 matmul, so no custom kernels are needed at all.
 """
 

@@ -10,7 +10,7 @@ from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 __all__ = ["Embedding", "SeqEmbedding", "MultiSeqEmbeddingShared",
            "MultiSeqEmbeddingIndividual"]
@@ -18,14 +18,14 @@ __all__ = ["Embedding", "SeqEmbedding", "MultiSeqEmbeddingShared",
 Array = jax.Array
 
 
-class Embedding(nnx.Module):
+class Embedding(nn.Module):
     """Learnable code table [n, dim] (reference embedding.py:18)."""
 
     def __init__(self, num_embeddings: int, dim: int, *, std: float = 0.01,
                  seed: int = 0, dtype=jnp.float32):
         self.num_embeddings = num_embeddings
         self.dim = dim
-        self.weight = nnx.Param(
+        self.weight = nn.Param(
             std * jax.random.normal(jax.random.key(seed), (num_embeddings, dim),
                                     dtype))
 
@@ -55,7 +55,7 @@ class SeqEmbedding(Embedding):
         return w[t0] * (1 - frac) + w[t1] * frac
 
 
-class MultiSeqEmbeddingShared(nnx.Module):
+class MultiSeqEmbeddingShared(nn.Module):
     """Multiple sequences sharing one per-frame table
     (reference sequential.py:104)."""
 
@@ -67,7 +67,7 @@ class MultiSeqEmbeddingShared(nnx.Module):
         return self.frame_embedding(ts)
 
 
-class MultiSeqEmbeddingIndividual(nnx.Module):
+class MultiSeqEmbeddingIndividual(nn.Module):
     """Per-sequence AND per-frame codes concatenated
     (reference sequential.py:216)."""
 

@@ -10,7 +10,7 @@ from typing import Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.blocks import MLP
 from nr3d_lib_tpu.models.embedders import get_embedder
@@ -38,7 +38,7 @@ def _trunc_exp_bwd(x, g):
 trunc_exp.defvjp(_trunc_exp_fwd, _trunc_exp_bwd)
 
 
-class RadianceNet(nnx.Module):
+class RadianceNet(nn.Module):
     """View-dependent radiance head (reference: mlp_nerf.py:188 RadianceNet):
     rgb = MLP([x?, v_embed, n?, h_extra]) with sigmoid output."""
 
@@ -71,7 +71,7 @@ class RadianceNet(nnx.Module):
         return self.mlp(jnp.concatenate(feats, -1))
 
 
-class MlpNeRF(nnx.Module):
+class MlpNeRF(nn.Module):
     """Classic embedded-MLP NeRF (reference: mlp_nerf.py:38 NeRF /
     :110 EmbededNeRF)."""
 
@@ -96,7 +96,7 @@ class MlpNeRF(nnx.Module):
         return out
 
 
-class PermutoNeRF(nnx.Module):
+class PermutoNeRF(nn.Module):
     """Permutohedral-encoded NeRF (reference: fields/nerf/permuto_nerf.py):
     the permuto counterpart of LoTDNeRF — same decoder/radiance heads."""
 
@@ -136,7 +136,7 @@ class PermutoNeRF(nnx.Module):
         return out
 
 
-class LoTDNeRF(nnx.Module):
+class LoTDNeRF(nn.Module):
     """LoTD-encoded NeRF (reference: lotd_nerf.py LoTDNeRF): hash/dense grid
     encoding → small density decoder → radiance head."""
 
@@ -152,12 +152,6 @@ class LoTDNeRF(nnx.Module):
         from nr3d_lib_tpu.models.grid_encodings.lotd import get_lotd_encoding
 
         self.encoding = get_lotd_encoding(3, **enc_cfg, seed=seed)
-        # NeRF density never differentiates w.r.t. positions (no eikonal);
-        # the brick backend then runs its gather-free backward (mirrors the
-        # reference's automatic need_input_grad=False, lotd.py:48). Set
-        # False if positions must carry gradient (pose refinement).
-        self._frozen_x = (enc_cfg.get("backend", "xla") == "brick"
-                          and bool(enc_cfg.get("frozen_x", True)))
         self.n_geo_feat = n_geo_feat
         dec_cfg = dict(density_decoder_cfg or {})
         dec_cfg.setdefault("D", 1)
@@ -168,9 +162,7 @@ class LoTDNeRF(nnx.Module):
                                     **(radiance_cfg or {}), seed=seed + 2)
 
     def forward_density(self, x: Array) -> Dict[str, Array]:
-        h = self.encoding(x, frozen_x=True) if self._frozen_x \
-            else self.encoding(x)
-        h = self.decoder(h)
+        h = self.decoder(self.encoding(x))
         return {"sigma": trunc_exp(h[..., 0]), "h": h[..., 1:]}
 
     def __call__(self, x: Array, v: Optional[Array] = None) -> Dict[str, Array]:

@@ -10,7 +10,7 @@ from typing import Dict, Optional, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.annealers import get_annealer
 from nr3d_lib_tpu.models.fields.nerf import RadianceNet
@@ -22,12 +22,12 @@ __all__ = ["LearnedVar", "ScheduledVar", "get_neus_var_ctrl", "LoTDNeuS",
 Array = jax.Array
 
 
-class LearnedVar(nnx.Module):
+class LearnedVar(nn.Module):
     """Single learnable inv_s = exp(10·ln_s) (reference: variance.py
     get_neus_var_ctrl 'learned'; original NeuS parameterization)."""
 
     def __init__(self, init_val: float = 0.3):
-        self.ln_s = nnx.Param(jnp.asarray(np.log(init_val) / 10.0, jnp.float32))
+        self.ln_s = nn.Param(jnp.asarray(np.log(init_val) / 10.0, jnp.float32))
 
     def inv_s(self) -> Array:
         return jnp.exp(self.ln_s[...] * 10.0)
@@ -42,13 +42,13 @@ class LearnedVar(nnx.Module):
         self.ln_s[...] = jnp.asarray(sd["ln_s"])
 
 
-class ScheduledVar(nnx.Module):
+class ScheduledVar(nn.Module):
     """inv_s follows an annealer schedule (reference: variance.py 'scheduled'
     / 'manual')."""
 
     def __init__(self, **anneal_cfg):
         self.annealer = get_annealer(**anneal_cfg)
-        self.cur = nnx.Variable(jnp.asarray(float(self.annealer(0)), jnp.float32))
+        self.cur = nn.Variable(jnp.asarray(float(self.annealer(0)), jnp.float32))
 
     def inv_s(self) -> Array:
         return self.cur[...]
@@ -72,7 +72,7 @@ def get_neus_var_ctrl(type: str = "learned", **kwargs):
     raise ValueError(f"Unknown var ctrl: {type}")
 
 
-class _NeuSBase(nnx.Module):
+class _NeuSBase(nn.Module):
     def forward_sdf(self, x: Array) -> Dict[str, Array]:
         return self.implicit_surface.forward_sdf(x)
 

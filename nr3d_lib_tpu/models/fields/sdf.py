@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.blocks import MLP
 from nr3d_lib_tpu.models.embedders import get_embedder
@@ -24,7 +24,7 @@ __all__ = ["LoTDSDF", "MlpSDF", "pretrain_sdf_sphere"]
 Array = jax.Array
 
 
-class LoTDSDF(nnx.Module):
+class LoTDSDF(nn.Module):
     """LoTD encoding + small decoder → (sdf, geometry feature)
     (reference: lotd_sdf.py LoTDSDF)."""
 
@@ -41,7 +41,6 @@ class LoTDSDF(nnx.Module):
             "lod_types": ["Dense", "Dense", "Hash", "Hash"],
             "hashmap_size": 2 ** 15})
         self.encoding = get_lotd_encoding(3, **enc_cfg, seed=seed)
-        self._enc_is_brick = enc_cfg.get("backend", "xla") == "brick"
         dec_cfg = dict(decoder_cfg or {})
         dec_cfg.setdefault("D", 1)
         dec_cfg.setdefault("W", 64)
@@ -51,11 +50,10 @@ class LoTDSDF(nnx.Module):
         self.n_geo_feat = n_geo_feat
         self.bounding_radius = bounding_radius
 
-    def _sdf_h(self, x: Array, ho: bool = False) -> Array:
+    def _sdf_h(self, x: Array) -> Array:
         """x in [-1,1] → [.., 1+n_geo_feat]; decoder also sees raw x so the
         net can express a global sphere-ish prior."""
-        h = self.encoding(x, ho=True) if (ho and self._enc_is_brick) \
-            else self.encoding(x)
+        h = self.encoding(x)
         return self.decoder(jnp.concatenate([x, h], -1))
 
     def forward_sdf(self, x: Array) -> Dict[str, Array]:
@@ -66,47 +64,21 @@ class LoTDSDF(nnx.Module):
                            ) -> Dict[str, Array]:
         """(sdf, h, nablas=∂sdf/∂x) — reference lotd_sdf.py:201
         forward_sdf_nablas. Gradients through `nablas` (eikonal loss)
-        trigger second-order autodiff end-to-end. With the brick backend
-        this splits into decoder-vjp (tiny MLP, plain XLA) + the dedicated
-        encoding-nablas Pallas kernel whose backward is the 2nd-order
-        kernel pair (reference lotd.py:193 / lotd_encoding.h:765)."""
-        if getattr(self, "_enc_is_brick", False):
-            return self._forward_sdf_nablas_brick(x)
-        if getattr(self, "_enc_is_cell", False):
-            return self._forward_sdf_nablas_cell(x)
+        trigger second-order autodiff end-to-end."""
 
         def f(xx):
-            out = self._sdf_h(xx, ho=has_grad)
+            out = self._sdf_h(xx)
             return out[..., 0], out[..., 1:]
 
         (sdf, h), vjp_fn = jax.vjp(f, x)
         nablas = vjp_fn((jnp.ones_like(sdf), jnp.zeros_like(h)))[0]
         return {"sdf": sdf, "h": h, "nablas": nablas}
 
-    def _forward_sdf_nablas_brick(self, x: Array) -> Dict[str, Array]:
-        """nablas = ∂sdf/∂x_direct + J_encᵀ·∂sdf/∂h_enc; the decoder term
-        via jax.vjp (2nd-order-safe XLA), the encoding term via
-        `LoTDBrickEncoding.nablas_path` (Pallas fwd + 2nd-order bwd)."""
-        batch = x.shape[:-1]
-        xf = x.reshape(-1, 3)
-        h_enc = self.encoding(xf)
-
-        def dec(xx, hh):
-            out = self.decoder(jnp.concatenate([xx, hh], -1))
-            return out[..., 0], out[..., 1:]
-
-        (sdf, h), dec_vjp = jax.vjp(dec, xf, h_enc)
-        gx, gh = dec_vjp((jnp.ones_like(sdf), jnp.zeros_like(h)))
-        nablas = gx + self.encoding.nablas_path(xf, gh)
-        return {"sdf": sdf.reshape(batch),
-                "h": h.reshape(*batch, h.shape[-1]),
-                "nablas": nablas.reshape(*batch, 3)}
-
     def __call__(self, x: Array) -> Array:
         return self.forward_sdf(x)["sdf"]
 
 
-class PermutoSDF(nnx.Module):
+class PermutoSDF(nn.Module):
     """Static permutohedral-encoded SDF (reference: fields/sdf/
     permuto_sdf.py PermutoSDF): permuto lattice features + small decoder,
     optional sphere geometric-init residual."""
@@ -122,7 +94,6 @@ class PermutoSDF(nnx.Module):
         cfg.setdefault("res_list", [8.0, 16.0, 32.0, 64.0, 128.0])
         cfg.setdefault("n_feats", 2)
         cfg.setdefault("log2_hashmap_size", 17)
-        self._enc_is_cell = cfg.get("backend", "xla") == "cell"
         self.bank = PermutoParams(
             3, cfg["res_list"], n_feats=cfg["n_feats"],
             log2_hashmap_size=cfg["log2_hashmap_size"],
@@ -137,8 +108,8 @@ class PermutoSDF(nnx.Module):
         self.n_geo_feat = n_geo_feat
         self.radius_init = float(radius_init)
 
-    def _sdf_h(self, x: Array, ho: bool = False) -> Array:
-        h = self.bank.encode(x * 0.5 + 0.5, ho=ho)
+    def _sdf_h(self, x: Array) -> Array:
+        h = self.bank.encode(x * 0.5 + 0.5)
         out = self.decoder(jnp.concatenate([x, h], -1))
         if self.radius_init > 0:
             out = out.at[..., 0].add(jnp.linalg.norm(x, axis=-1)
@@ -148,34 +119,11 @@ class PermutoSDF(nnx.Module):
     forward_sdf = LoTDSDF.forward_sdf
     forward_sdf_nablas = LoTDSDF.forward_sdf_nablas
 
-    def _forward_sdf_nablas_cell(self, x: Array) -> Dict[str, Array]:
-        """Split nablas for the cell backends: decoder term by plain
-        (2nd-order-safe) vjp + encoding term via the dedicated cell nablas
-        kernel (cf. _forward_sdf_nablas_brick)."""
-        batch = x.shape[:-1]
-        xf = x.reshape(-1, 3)
-        x01 = xf * 0.5 + 0.5
-        h_enc = self.bank.encode(x01)
-
-        def dec(xx, hh):
-            out = self.decoder(jnp.concatenate([xx, hh], -1))
-            if self.radius_init > 0:
-                out = out.at[..., 0].add(jnp.linalg.norm(xx, axis=-1)
-                                         - self.radius_init)
-            return out[..., 0], out[..., 1:]
-
-        (sdf, h), dec_vjp = jax.vjp(dec, xf, h_enc)
-        gx, gh = dec_vjp((jnp.ones_like(sdf), jnp.zeros_like(h)))
-        nablas = gx + 0.5 * self.bank.nablas(gh, x01)
-        return {"sdf": sdf.reshape(batch),
-                "h": h.reshape(*batch, h.shape[-1]),
-                "nablas": nablas.reshape(*batch, 3)}
-
     def __call__(self, x: Array) -> Array:
         return self._sdf_h(x)[..., 0]
 
 
-class MlpSDF(nnx.Module):
+class MlpSDF(nn.Module):
     """Geometric-init MLP SDF (reference: mlp_sdf.py): freq-embedded input,
     skip connection, softplus(β=100), sphere init."""
 
@@ -195,29 +143,6 @@ class MlpSDF(nnx.Module):
     forward_sdf = LoTDSDF.forward_sdf
     forward_sdf_nablas = LoTDSDF.forward_sdf_nablas
 
-    def _forward_sdf_nablas_cell(self, x: Array) -> Dict[str, Array]:
-        """Split nablas for the cell backends: decoder term by plain
-        (2nd-order-safe) vjp + encoding term via the dedicated cell nablas
-        kernel (cf. _forward_sdf_nablas_brick)."""
-        batch = x.shape[:-1]
-        xf = x.reshape(-1, 3)
-        x01 = xf * 0.5 + 0.5
-        h_enc = self.bank.encode(x01)
-
-        def dec(xx, hh):
-            out = self.decoder(jnp.concatenate([xx, hh], -1))
-            if self.radius_init > 0:
-                out = out.at[..., 0].add(jnp.linalg.norm(xx, axis=-1)
-                                         - self.radius_init)
-            return out[..., 0], out[..., 1:]
-
-        (sdf, h), dec_vjp = jax.vjp(dec, xf, h_enc)
-        gx, gh = dec_vjp((jnp.ones_like(sdf), jnp.zeros_like(h)))
-        nablas = gx + 0.5 * self.bank.nablas(gh, x01)
-        return {"sdf": sdf.reshape(batch),
-                "h": h.reshape(*batch, h.shape[-1]),
-                "nablas": nablas.reshape(*batch, 3)}
-
     def __call__(self, x: Array) -> Array:
         return self._sdf_h(x)[..., 0]
 
@@ -229,7 +154,7 @@ def pretrain_sdf_sphere(model, key, *, radius: float = 0.5, n_iters: int = 500,
     import optax
 
     opt = optax.adam(lr)
-    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    graphdef, params, rest = nn.split(model, nn.Param, ...)
     opt_state = opt.init(params)
 
     @jax.jit
@@ -238,7 +163,7 @@ def pretrain_sdf_sphere(model, key, *, radius: float = 0.5, n_iters: int = 500,
         target = jnp.linalg.norm(x, axis=-1) - radius
 
         def loss_fn(p):
-            m = nnx.merge(graphdef, p, rest)
+            m = nn.merge(graphdef, p, rest)
             return jnp.mean((m(x) - target) ** 2)
 
         loss, g = jax.value_and_grad(loss_fn)(params)
@@ -249,5 +174,5 @@ def pretrain_sdf_sphere(model, key, *, radius: float = 0.5, n_iters: int = 500,
     for i in range(n_iters):
         key, sub = jax.random.split(key)
         params, opt_state, loss = step(params, opt_state, sub)
-    nnx.update(model, params)
+    nn.update(model, params)
     return float(loss)

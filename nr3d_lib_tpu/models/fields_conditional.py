@@ -7,7 +7,7 @@ StyleLoTDSDF/NeuS (grower-produced per-instance LoTD params,
 style_lotd_neus.py:322, lotd_batched_growers.py:52-753), batched renderer
 mixin (fields_conditional/neus/renderer_mixin.py:25).
 
-TPU notes: the "concat" family feeds [x, z] into a high-dim permutohedral
+Notes: the "concat" family feeds [x, z] into a high-dim permutohedral
 encoding (its d+1-gather cost grows linearly in dim — the reason the
 reference uses permuto here). The "style" family runs a hypernetwork
 ("grower") z → flattened LoTD params and uses batched LoTD (`bidx`).
@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.blocks import MLP
 from nr3d_lib_tpu.models.fields.nerf import RadianceNet
@@ -34,7 +34,7 @@ __all__ = ["GenerativePermutoConcatSDF", "GenerativePermutoConcatNeuS",
 Array = jax.Array
 
 
-class GenerativePermutoConcatSDF(nnx.Module):
+class GenerativePermutoConcatSDF(nn.Module):
     """SDF conditioned by concatenating z into the permuto input
     (reference: generative_permuto_sdf.py GenerativePermutoConcatSDF)."""
 
@@ -47,8 +47,8 @@ class GenerativePermutoConcatSDF(nnx.Module):
         cfg.setdefault("res_list", [8.0, 16.0, 32.0, 64.0])
         cfg.setdefault("n_feats", 2)
         cfg.setdefault("log2_hashmap_size", 16)
-        # backend="cell" (TPU fast path) needs 3+z_dim ≤ 5 — the cell row
-        # layout packs 2^(d+1) vertex slots into 128 lanes
+        # backend="cell" needs 3+z_dim ≤ 5 — the cell row layout packs
+        # 2^(d+1) vertex slots into 128 lanes
         self.bank = PermutoParams(
             3 + z_dim, cfg["res_list"], n_feats=cfg["n_feats"],
             log2_hashmap_size=cfg["log2_hashmap_size"],
@@ -72,12 +72,12 @@ class GenerativePermutoConcatSDF(nnx.Module):
         """Back-compat alias for the bank's table (pre-bank field API)."""
         return self.bank.flattened_params
 
-    def _sdf_h(self, x: Array, z: Array, ho: bool = False) -> Array:
+    def _sdf_h(self, x: Array, z: Array) -> Array:
         """x [-1,1]^3; z [..., z_dim] broadcastable to x's batch."""
         z = jnp.broadcast_to(z, x.shape[:-1] + (self.z_dim,))
         inp = jnp.concatenate([x * 0.5 + 0.5,
                                jnp.tanh(z * self.z_scale) * 0.5 + 0.5], -1)
-        h = self.bank.encode(inp, ho=ho)
+        h = self.bank.encode(inp)
         out = self.decoder(jnp.concatenate([x, h], -1))
         if self.radius_init > 0:
             sphere = jnp.linalg.norm(x, axis=-1) - self.radius_init
@@ -89,29 +89,8 @@ class GenerativePermutoConcatSDF(nnx.Module):
         return {"sdf": out[..., 0], "h": out[..., 1:]}
 
     def forward_sdf_nablas(self, x: Array, z: Array) -> Dict[str, Array]:
-        if self.bank.backend == "cell":
-            # split: decoder vjp + encoding nablas kernel; spatial grads
-            # are the first 3 of the (x, z) lattice-input gradients
-            z_b = jnp.broadcast_to(z, x.shape[:-1] + (self.z_dim,))
-            inp = jnp.concatenate([x * 0.5 + 0.5,
-                                   jnp.tanh(z_b * self.z_scale) * 0.5 + 0.5],
-                                  -1)
-            h_enc = self.bank.encode(inp)
-
-            def dec(xx, hh):
-                out = self.decoder(jnp.concatenate([xx, hh], -1))
-                if self.radius_init > 0:
-                    out = out.at[..., 0].add(
-                        jnp.linalg.norm(xx, axis=-1) - self.radius_init)
-                return out[..., 0], out[..., 1:]
-
-            (sdf, h), dec_vjp = jax.vjp(dec, x, h_enc)
-            gx, gh = dec_vjp((jnp.ones_like(sdf), jnp.zeros_like(h)))
-            nablas = gx + 0.5 * self.bank.nablas(gh, inp)[..., :3]
-            return {"sdf": sdf, "h": h, "nablas": nablas}
-
         def f(xx):
-            out = self._sdf_h(xx, z, ho=True)
+            out = self._sdf_h(xx, z)
             return out[..., 0], out[..., 1:]
 
         (sdf, h), vjp_fn = jax.vjp(f, x)
@@ -119,7 +98,7 @@ class GenerativePermutoConcatSDF(nnx.Module):
         return {"sdf": sdf, "h": h, "nablas": nablas}
 
 
-class GenerativePermutoConcatNeuS(nnx.Module):
+class GenerativePermutoConcatNeuS(nn.Module):
     """(reference: generative_permuto_neus.py GenerativePermutoConcatNeuS)"""
 
     def __init__(self, z_dim: int = 4, *, surface_cfg: Optional[dict] = None,
@@ -149,7 +128,7 @@ from nr3d_lib_tpu.models.grid_encodings.lotd.lotd_growers import (  # noqa: E402
     LoTDFlattenGrower as LoTDDenseGrower, get_lotd_grower)
 
 
-class StyleLoTDSDF(nnx.Module):
+class StyleLoTDSDF(nn.Module):
     """Per-instance LoTD params from a grower + shared decoder
     (reference: style_lotd_sdf.py:229 StyleLoTDSDF)."""
 
@@ -199,7 +178,7 @@ class StyleLoTDSDF(nnx.Module):
         return {"sdf": sdf, "h": h, "nablas": nablas}
 
 
-class StyleLoTDNeuS(nnx.Module):
+class StyleLoTDNeuS(nn.Module):
     """(reference: style_lotd_neus.py:322 StyleLoTDNeuS)"""
 
     def __init__(self, z_dim: int = 64, *, surface_cfg: Optional[dict] = None,

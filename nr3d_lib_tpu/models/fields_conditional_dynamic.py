@@ -13,7 +13,7 @@ from typing import Dict, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.blocks import MLP
 from nr3d_lib_tpu.models.fields.nerf import RadianceNet
@@ -27,7 +27,7 @@ __all__ = ["DynamicGenerativePermutoConcatSDF",
 Array = jax.Array
 
 
-class DynamicGenerativePermutoConcatSDF(nnx.Module):
+class DynamicGenerativePermutoConcatSDF(nn.Module):
     """SDF over (x, z, t): a (3+z_dim+1)-dim permuto encoding
     (reference: fields_conditional_dynamic — the z-and-t concat variant of
     generative_permuto_sdf.py:530)."""
@@ -41,7 +41,7 @@ class DynamicGenerativePermutoConcatSDF(nnx.Module):
         cfg.setdefault("res_list", [8.0, 16.0, 32.0, 64.0])
         cfg.setdefault("n_feats", 2)
         cfg.setdefault("log2_hashmap_size", 16)
-        # backend="cell" (TPU fast path) needs 3+z_dim+1 <= 5
+        # backend="cell" needs 3+z_dim+1 <= 5
         self.bank = PermutoParams(
             3 + z_dim + 1, cfg["res_list"], n_feats=cfg["n_feats"],
             log2_hashmap_size=cfg["log2_hashmap_size"],
@@ -62,7 +62,7 @@ class DynamicGenerativePermutoConcatSDF(nnx.Module):
         """Back-compat alias for the bank's table (pre-bank field API)."""
         return self.bank.flattened_params
 
-    def _sdf_h(self, x: Array, z: Array, ts: Array, ho: bool = False) -> Array:
+    def _sdf_h(self, x: Array, z: Array, ts: Array) -> Array:
         z = jnp.broadcast_to(z, x.shape[:-1] + (self.z_dim,))
         ts = jnp.broadcast_to(jnp.asarray(ts).reshape(-1, 1)
                               if jnp.ndim(ts) <= 1 else ts,
@@ -70,7 +70,7 @@ class DynamicGenerativePermutoConcatSDF(nnx.Module):
         inp = jnp.concatenate([x * 0.5 + 0.5,
                                jnp.tanh(z * self.z_scale) * 0.5 + 0.5,
                                ts * 0.5 + 0.5], -1)
-        h = self.bank.encode(inp, ho=ho)
+        h = self.bank.encode(inp)
         out = self.decoder(jnp.concatenate([x, h], -1))
         if self.radius_init > 0:
             # geometric init (sphere residual) — see fields_conditional.py
@@ -84,32 +84,8 @@ class DynamicGenerativePermutoConcatSDF(nnx.Module):
 
     def forward_sdf_nablas(self, x: Array, z: Array, ts: Array
                            ) -> Dict[str, Array]:
-        if self.bank.backend == "cell":
-            # split formulation (cf. fields_conditional.py): spatial grads
-            # are the first 3 of the (x, z, t) lattice-input gradients
-            z_b = jnp.broadcast_to(z, x.shape[:-1] + (self.z_dim,))
-            ts_b = jnp.broadcast_to(jnp.asarray(ts).reshape(-1, 1)
-                                    if jnp.ndim(ts) <= 1 else ts,
-                                    x.shape[:-1] + (1,))
-            inp = jnp.concatenate([x * 0.5 + 0.5,
-                                   jnp.tanh(z_b * self.z_scale) * 0.5 + 0.5,
-                                   ts_b * 0.5 + 0.5], -1)
-            h_enc = self.bank.encode(inp)
-
-            def dec(xx, hh):
-                out = self.decoder(jnp.concatenate([xx, hh], -1))
-                if self.radius_init > 0:
-                    out = out.at[..., 0].add(
-                        jnp.linalg.norm(xx, axis=-1) - self.radius_init)
-                return out[..., 0], out[..., 1:]
-
-            (sdf, h), dec_vjp = jax.vjp(dec, x, h_enc)
-            gx, gh = dec_vjp((jnp.ones_like(sdf), jnp.zeros_like(h)))
-            nablas = gx + 0.5 * self.bank.nablas(gh, inp)[..., :3]
-            return {"sdf": sdf, "h": h, "nablas": nablas}
-
         def f(xx):
-            out = self._sdf_h(xx, z, ts, ho=True)
+            out = self._sdf_h(xx, z, ts)
             return out[..., 0], out[..., 1:]
 
         (sdf, h), vjp_fn = jax.vjp(f, x)
@@ -117,7 +93,7 @@ class DynamicGenerativePermutoConcatSDF(nnx.Module):
         return {"sdf": sdf, "h": h, "nablas": nablas}
 
 
-class DynamicGenerativePermutoConcatNeuS(nnx.Module):
+class DynamicGenerativePermutoConcatNeuS(nn.Module):
     """(reference: fields_conditional_dynamic/neus/
     DynamicGenerativePermutoConcatNeuS)"""
 

@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.graphics.nerf import ray_alpha_to_vw, tau_to_alpha
 from nr3d_lib_tpu.models.blocks import MLP
@@ -33,7 +33,7 @@ def inverted_sphere_coords(x: Array, radius: float = 1.0) -> Array:
     return jnp.concatenate([x / jnp.maximum(r * radius, 1e-8), 1.0 / jnp.maximum(r, 1.0)], -1)
 
 
-class NeRFDistant(nnx.Module):
+class NeRFDistant(nn.Module):
     """Background NeRF over inverted-sphere coords
     (reference: fields_distant small nets + mixin)."""
 
@@ -106,7 +106,7 @@ def ray_sphere_exit_t(rays_o: Array, rays_d: Array, r) -> Tuple[Array, Array]:
     return t, (disc > 0) & (t > 0)
 
 
-class NeRFDistantModel(nnx.Module, ModelMixin):
+class NeRFDistantModel(nn.Module, ModelMixin):
     """Renderable distant-background model (reference:
     NeRFRendererMixinDistant renderer_mixin.py:87-383): shell-based marching
     between radius_scale_min and radius_scale_max around the inner scene

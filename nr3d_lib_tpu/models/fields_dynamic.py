@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.blocks import MLP
 from nr3d_lib_tpu.models.fields.nerf import RadianceNet, trunc_exp
@@ -28,7 +28,7 @@ __all__ = ["DynamicPermutoConcatSDF", "DynamicPermutoConcatNeuS", "EmerNeRF",
 Array = jax.Array
 
 
-class DynamicPermutoConcatSDF(nnx.Module):
+class DynamicPermutoConcatSDF(nn.Module):
     """SDF over (x, t) via 4D permuto (reference: dynamic_permuto_sdf.py:546)."""
 
     def __init__(self, *, permuto_cfg: Optional[dict] = None,
@@ -58,12 +58,12 @@ class DynamicPermutoConcatSDF(nnx.Module):
         """Back-compat alias for the bank's table (pre-bank field API)."""
         return self.bank.flattened_params
 
-    def _sdf_h(self, x: Array, ts: Array, ho: bool = False) -> Array:
+    def _sdf_h(self, x: Array, ts: Array) -> Array:
         ts = jnp.broadcast_to(jnp.asarray(ts).reshape(-1, 1)
                               if jnp.ndim(ts) <= 1 else ts,
                               x.shape[:-1] + (1,))
         inp = jnp.concatenate([x * 0.5 + 0.5, ts * 0.5 + 0.5], -1)
-        h = self.bank.encode(inp, ho=ho)
+        h = self.bank.encode(inp)
         out = self.decoder(jnp.concatenate([x, h], -1))
         if self.radius_init > 0:
             # geometric init (sphere residual) — see fields_conditional.py
@@ -76,32 +76,8 @@ class DynamicPermutoConcatSDF(nnx.Module):
         return {"sdf": out[..., 0], "h": out[..., 1:]}
 
     def forward_sdf_nablas(self, x: Array, ts: Array) -> Dict[str, Array]:
-        if self.bank.backend == "cell":
-            # split: decoder term by plain vjp + the 4D (x,t) encoding term
-            # via the dedicated cell nablas kernel; spatial nablas are the
-            # first 3 of the 4 lattice-input gradients (t is held fixed)
-            ts_b = jnp.broadcast_to(jnp.asarray(ts).reshape(-1, 1)
-                                    if jnp.ndim(ts) <= 1 else ts,
-                                    x.shape[:-1] + (1,))
-            inp = jnp.concatenate([x * 0.5 + 0.5, ts_b * 0.5 + 0.5], -1)
-            h_enc = self.bank.encode(inp)
-
-            def dec(xx, hh):
-                out = self.decoder(jnp.concatenate([xx, hh], -1))
-                if self.radius_init > 0:
-                    out = out.at[..., 0].add(
-                        jnp.linalg.norm(xx, axis=-1) - self.radius_init)
-                return out[..., 0], out[..., 1:]
-
-            (sdf, h), dec_vjp = jax.vjp(dec, x, h_enc)
-            gx, gh = dec_vjp((jnp.ones_like(sdf), jnp.zeros_like(h)))
-            nablas = gx + 0.5 * self.bank.nablas(gh, inp)[..., :3]
-            return {"sdf": sdf, "h": h, "nablas": nablas}
-
         def f(xx):
-            # ho: eikonal losses differentiate through this vjp — the xla
-            # backend supports all autodiff orders directly
-            out = self._sdf_h(xx, ts, ho=True)
+            out = self._sdf_h(xx, ts)
             return out[..., 0], out[..., 1:]
 
         (sdf, h), vjp_fn = jax.vjp(f, x)
@@ -109,7 +85,7 @@ class DynamicPermutoConcatSDF(nnx.Module):
         return {"sdf": sdf, "h": h, "nablas": nablas}
 
 
-class DynamicPermutoConcatNeuS(nnx.Module):
+class DynamicPermutoConcatNeuS(nn.Module):
     """(reference: dynamic_permuto_neus.py:248 + NeusRendererMixinDynamic)"""
 
     def __init__(self, *, surface_cfg: Optional[dict] = None,
@@ -133,7 +109,7 @@ class DynamicPermutoConcatNeuS(nnx.Module):
         return out
 
 
-class EmerNeRF(nnx.Module):
+class EmerNeRF(nn.Module):
     """Static + dynamic + flow decomposition (reference: emernerf.py:62-1375
     EmerNeRF — static branch, time-conditioned dynamic branch, optional
     scene-flow field for temporal aggregation, shadow head).
@@ -265,7 +241,7 @@ class EmerNeRF(nnx.Module):
         return out
 
 
-class EmerNeRFOnlyDynamic(nnx.Module):
+class EmerNeRFOnlyDynamic(nn.Module):
     """EmerNeRF without the static branch (reference emernerf.py:974
     EmerNeRFOnlyDynamic) — models a fully dynamic scene (or the dynamic
     residual on top of an external static model). Same dynamic (x,t) permuto

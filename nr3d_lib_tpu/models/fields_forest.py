@@ -5,7 +5,7 @@ LoTDForestNeuS (lotd_forest_neus.py:218), NeuSRendererMixinForest
 (renderer_mixin.py:133-886), grid_encodings/lotd/lotd_forest.py (per-block
 LoTD params over a shared LoDMeta + ForestMeta).
 
-TPU design: per-block parameters are a batched LoTD table [n_trees,
+Design: per-block parameters are a batched LoTD table [n_trees,
 n_params]; the sample's block slot is the batched-encode `bidx`
 (ops/lotd.py supports it natively), and block-local coords come from
 `ForestBlockSpace.normalize_coords`. The reference's per-segment pack
@@ -20,7 +20,7 @@ from typing import Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.graphics.nerf import ray_alpha_to_vw
 from nr3d_lib_tpu.graphics.neus import neus_ray_sdf_to_alpha
@@ -37,14 +37,14 @@ __all__ = ["LoTDForestEncoding", "LoTDForestSDF", "LoTDForestNeuS",
 Array = jax.Array
 
 
-class LoTDForestEncoding(nnx.Module):
+class LoTDForestEncoding(nn.Module):
     """Per-block LoTD params over one shared meta
     (reference: lotd_forest.py:29-73 LoTDForestEncoding).
 
     backend='brick' switches to per-block BRICK tables
-    (`ops/lotd_brick.brick_encode_batched`): one row-gather per
-    (point, level) on the Pallas fast path regardless of block count —
-    the TPU equivalent of the reference's lotd_forest.h CUDA kernels.
+    (`ops/lotd_brick.brick_encode_xla` with `bidx`): one row-gather per
+    (point, level) regardless of block count — the counterpart of the
+    reference's lotd_forest.h CUDA kernels.
     Dense levels keep canonical per-block vertex grids (C0-tied within a
     block, like LoTDBrickEncoding)."""
 
@@ -64,9 +64,9 @@ class LoTDForestEncoding(nnx.Module):
             types = cfg["lod_types"]
             if isinstance(types, str):
                 types = [types] * len(cfg["lod_res"])
-            self.meta_brick = _B.make_forest_meta(_B.make_brick_meta(
+            self.meta_brick = _B.make_brick_meta(
                 cfg["lod_res"], types,
-                hashmap_rows=max(1, int(cfg["hashmap_size"]) // 64)))
+                hashmap_rows=max(1, int(cfg["hashmap_size"]) // 64))
             self.out_features = self.meta_brick.out_features
             sizes = []
             for lv in self.meta_brick.levels:
@@ -83,7 +83,7 @@ class LoTDForestEncoding(nnx.Module):
                 hashmap_size=cfg.get("hashmap_size"))
             self.out_features = self.meta.out_features
             n_params = self.meta.n_params
-        self.flattened_params = nnx.Param(
+        self.flattened_params = nn.Param(
             jax.random.uniform(jax.random.key(seed),
                                (n_trees, n_params), param_dtype,
                                -1e-4, 1e-4))
@@ -112,23 +112,13 @@ class LoTDForestEncoding(nnx.Module):
         if self.backend == "brick":
             from nr3d_lib_tpu.ops import lotd_brick as _B
 
-            y = _B.brick_encode_batched(x_local * 0.5 + 0.5,
-                                        self._build_tables(),
-                                        self.meta_brick, bidx)
+            y = _B.brick_encode_xla(x_local * 0.5 + 0.5,
+                                    self._build_tables(), self.meta_brick,
+                                    bidx)
             return jnp.where(bidx[..., None] >= 0, y, 0.0)
         return _lotd.lotd_encode(x_local * 0.5 + 0.5,
                                  self.flattened_params[...], self.meta,
                                  bidx=bidx)
-
-    def nablas_path(self, x_local: Array, g_up: Array, bidx: Array) -> Array:
-        """J_encᵀ·g_up (brick backend): Pallas nablas kernel whose backward
-        is the 2nd-order pair; the 0.5 folds the [-1,1]→[0,1] rescale."""
-        from nr3d_lib_tpu.ops import lotd_brick as _B
-
-        g_up = jnp.where(bidx[..., None] >= 0, g_up, 0.0)
-        return 0.5 * _B.brick_nablas_batched(g_up, x_local * 0.5 + 0.5,
-                                             self._build_tables(),
-                                             self.meta_brick, bidx)
 
     def state_dict(self):
         return {"flattened_params": self.flattened_params[...]}
@@ -137,7 +127,7 @@ class LoTDForestEncoding(nnx.Module):
         self.flattened_params[...] = jnp.asarray(sd["flattened_params"])
 
 
-class LoTDForestSDF(nnx.Module):
+class LoTDForestSDF(nn.Module):
     """Forest SDF: shared decoder over per-block encodings
     (reference: lotd_forest_sdf.py:273)."""
 
@@ -166,25 +156,6 @@ class LoTDForestSDF(nnx.Module):
         return {"sdf": out[..., 0], "h": out[..., 1:]}
 
     def forward_sdf_nablas(self, x_world: Array) -> Dict[str, Array]:
-        if self.encoding.backend == "brick":
-            # split: decoder term by plain (2nd-order-safe) vjp, encoding
-            # term via the per-block nablas kernel with its 2nd-order
-            # Pallas backward (cf. fields/sdf.py _forward_sdf_nablas_brick)
-            bidx = self.space.block_of_points(x_world)
-            x_local = self.space.normalize_coords(x_world, bidx)
-            h_enc = self.encoding(x_local, bidx)
-
-            def dec(xx, hh):
-                out = self.decoder(jnp.concatenate([xx, hh], -1))
-                return out[..., 0], out[..., 1:]
-
-            (sdf, h), dec_vjp = jax.vjp(dec, x_local, h_enc)
-            gx, gh = dec_vjp((jnp.ones_like(sdf), jnp.zeros_like(h)))
-            nab_local = gx + self.encoding.nablas_path(x_local, gh, bidx)
-            # d x_local / d x_world = 2 / block_size
-            nablas = nab_local * (2.0 / self.space.block_size)
-            return {"sdf": sdf, "h": h, "nablas": nablas}
-
         def f(xx):
             out = self._sdf_h(xx)
             return out[..., 0], out[..., 1:]
@@ -194,7 +165,7 @@ class LoTDForestSDF(nnx.Module):
         return {"sdf": sdf, "h": h, "nablas": nablas}
 
 
-class LoTDForestNeuS(nnx.Module):
+class LoTDForestNeuS(nn.Module):
     """Forest NeuS (reference: lotd_forest_neus.py:218 LoTDForestNeuS)."""
 
     def __init__(self, space: ForestBlockSpace, *,
@@ -213,7 +184,7 @@ class LoTDForestNeuS(nnx.Module):
         return self.var_ctrl.inv_s()
 
 
-class LoTDForestNeRF(nnx.Module):
+class LoTDForestNeRF(nn.Module):
     """Forest NeRF (reference: lotd_forest_nerf.py:122)."""
 
     def __init__(self, space: ForestBlockSpace, *,
@@ -240,7 +211,7 @@ class LoTDForestNeRF(nnx.Module):
         return {"sigma": sigma, "h": h[..., 1:]}
 
 
-class LoTDForestNeuSModel(nnx.Module, ModelMixin):
+class LoTDForestNeuSModel(nn.Module, ModelMixin):
     """Renderable forest NeuS (reference: NeuSRendererMixinForest,
     fields_forest/neus/renderer_mixin.py:133/274/734).
 

@@ -11,13 +11,13 @@ def get_lotd_encoding(input_ch: int = 3, *, backend: str = "xla",
                       **kwargs):
     """Encoding factory shared by the field classes: backend 'xla' →
     LoTDEncoding (all 8 decomposition types, all autodiff orders);
-    'brick' → LoTDBrickEncoding (Dense/Hash TPU fast path)."""
+    'brick' → LoTDBrickEncoding (Dense/Hash brick rows)."""
     if backend == "brick":
         lc = dict(lotd_cfg or {})
         types = lc.get("lod_types", "Dense")
         if isinstance(types, str):
             types = [types] * len(lc["lod_res"])
-        # lod_n_feats=4 selects the bf16-packed variant (ops/lotd_brick4.py)
+        # lod_n_feats=4 selects the bf16 variant (ops/lotd_brick4.py)
         enc = LoTDBrickEncoding(input_ch, lod_res=lc["lod_res"],
                                 lod_types=types, hashmap_rows=hashmap_rows,
                                 n_feats=int(lc.get("lod_n_feats", 2)),

@@ -1,8 +1,8 @@
-"""LoTDBrickEncoding — module wrapper over the brick-layout fast path.
+"""LoTDBrickEncoding — module wrapper over the brick-layout encode.
 
-Drop-in alternative to `LoTDEncoding` for Dense/Hash configurations: same
-[-1,1] input convention and feature layout, backed by `ops/lotd_brick.py`
-(one row-gather per point per level — see memory: lotd-brick-design).
+Alternative to `LoTDEncoding` for Dense/Hash configurations: same [-1,1]
+input convention and feature layout, backed by `ops/lotd_brick.py` (one
+row-gather per point per level).
 
 Parameters:
   * dense levels: canonical vertex grids (C0-tied, exactly reference Dense);
@@ -13,12 +13,12 @@ Stored as one flattened vector for checkpoint/optimizer parity with
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.ops import lotd_brick as B
 
@@ -27,24 +27,16 @@ __all__ = ["LoTDBrickEncoding"]
 Array = jax.Array
 
 
-class LoTDBrickEncoding(nnx.Module):
+class LoTDBrickEncoding(nn.Module):
     def __init__(self, input_ch: int = 3, *,
                  lod_res: Sequence, lod_types: Sequence[str],
                  hashmap_rows: int = 4096,
                  n_feats: int = 2,
                  param_init_std: float = 1e-4,
-                 use_pallas: bool = True,
-                 coherent: bool = True,
                  seed: int = 42, param_dtype=jnp.float32):
-        """coherent: accepted for API stability; the kernel currently uses
-        one uniform gather loop regardless (coherence-exploiting variants
-        measured slower — docs/DESIGN.md §3).
-
-        n_feats=4 selects the bf16-packed variant (`ops/lotd_brick4.py`):
-        4 feats/vertex bit-packed into the same 128-lane rows — half the
-        levels, and half the gather issues, per output feature. ≤4 levels;
-        its kernels are 1st-order (ho routes to the XLA formulation), so
-        prefer it for NeRF-style training and rendering."""
+        """n_feats=4 selects the bf16 variant (`ops/lotd_brick4.py`):
+        4 feats/vertex per brick row — half the levels, and half the
+        gathers, per output feature. ≤4 levels."""
         assert input_ch == 3, "brick backend is 3D"
         assert n_feats in (2, 4)
         self.n_feats = n_feats
@@ -54,8 +46,6 @@ class LoTDBrickEncoding(nnx.Module):
             self.meta = B4.make_brick4_meta(lod_res, lod_types, hashmap_rows)
         else:
             self.meta = B.make_brick_meta(lod_res, lod_types, hashmap_rows)
-        self.use_pallas = use_pallas
-        self.coherent = coherent
         self.in_features = 3
         self.out_features = self.meta.out_features * (n_feats // 2)
         row_width = B.LANES * (n_feats // 2)
@@ -72,10 +62,10 @@ class LoTDBrickEncoding(nnx.Module):
         offsets = [0]
         for sz in sizes:
             offsets.append(offsets[-1] + sz)
-        self._param_offsets = tuple(offsets)  # static ints (nnx must not trace)
+        self._param_offsets = tuple(offsets)  # static ints, not state
         n_params = int(self._param_offsets[-1])
         key = jax.random.key(seed)
-        self.flattened_params = nnx.Param(
+        self.flattened_params = nn.Param(
             jax.random.uniform(key, (n_params,), param_dtype,
                                -param_init_std, param_init_std))
 
@@ -110,49 +100,17 @@ class LoTDBrickEncoding(nnx.Module):
                 rows.append(p.reshape(lv.n_rows, B.LANES))
         return jnp.concatenate(rows, axis=0)
 
-    def __call__(self, x: Array, ho: bool = False,
-                 frozen_x: bool = False) -> Array:
-        """x in [-1,1] → [N, n_feats·L] (kernel space is [0,1] like the
-        reference).
-
-        ho=True switches to the higher-order-differentiable XLA formulation
-        (brick_encode_ho) — needed when the caller differentiates through
-        the backward (eikonal on nablas); the Pallas pair is 1st-order.
-        frozen_x=True: positions carry no gradient (plain radiance-field
-        training) — the backward skips the table gather entirely (~1.3×
-        faster train step)."""
+    def __call__(self, x: Array) -> Array:
+        """x in [-1,1] → [N, n_feats·L] (encode space is [0,1] like the
+        reference); differentiable to any order."""
         table = self._build_table()
         if self.n_feats == 4:
             from nr3d_lib_tpu.ops import lotd_brick4 as B4
 
-            if ho:
-                return B4.brick4_encode_xla(x * 0.5 + 0.5, table, self.meta)
-            if frozen_x:
-                return B4.brick4_encode_frozen_x(x * 0.5 + 0.5, table,
-                                                 self.meta)
-            return B4.brick4_encode(x * 0.5 + 0.5, table, self.meta)
-        if ho:
-            return B.brick_encode_ho(x * 0.5 + 0.5, table, self.meta)
-        if frozen_x:
-            return B.brick_encode_frozen_x(x * 0.5 + 0.5, table, self.meta)
-        return B.brick_encode(x * 0.5 + 0.5, table, self.meta,
-                              self.use_pallas, self.coherent)
+            return B4.brick4_encode_xla(x * 0.5 + 0.5, table, self.meta)
+        return B.brick_encode_xla(x * 0.5 + 0.5, table, self.meta)
 
     forward = __call__
-
-    def nablas_path(self, x: Array, g_up: Array) -> Array:
-        """J_enc(x)ᵀ·g_up in the module's [-1,1] input convention, via the
-        dedicated nablas Pallas kernel whose OWN backward is the 2nd-order
-        kernel pair (reference LoTDFunctionBwdDydx, lotd.py:193 — grads of
-        an eikonal loss flow to g_up / x / params through it). The 0.5
-        folds the [-1,1]→[0,1] input rescale into the chain rule."""
-        table = self._build_table()
-        if self.n_feats == 4:
-            from nr3d_lib_tpu.ops import lotd_brick4 as B4
-
-            return 0.5 * B4.brick4_nablas(g_up, x * 0.5 + 0.5, table,
-                                          self.meta)
-        return 0.5 * B.brick_nablas(g_up, x * 0.5 + 0.5, table, self.meta)
 
     def state_dict(self):
         return {"flattened_params": self.flattened_params[...]}

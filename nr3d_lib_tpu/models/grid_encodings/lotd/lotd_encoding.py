@@ -1,7 +1,7 @@
 """LoTDEncoding — stateful module over the functional LoTD core.
 
 Reference: nr3d_lib/models/grid_encodings/lotd/lotd_encoding.py:38-120:
-owns the flattened parameter vector (fp32 master — on TPU compute casts to
+owns the flattened parameter vector (fp32 master — compute may cast to
 bf16 without loss-scaling), input in [-1,1] mapped to the kernel's [0,1],
 progressive `max_level` masking + windowed anneal, per-level param access.
 """
@@ -13,7 +13,7 @@ from typing import Optional, Sequence, Tuple, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.annealers import MultiresAnnealer
 from nr3d_lib_tpu.ops import lotd as _lotd
@@ -23,7 +23,7 @@ __all__ = ["LoTDEncoding"]
 Array = jax.Array
 
 
-class LoTDEncoding(nnx.Module):
+class LoTDEncoding(nn.Module):
     def __init__(self, input_ch: int = 3, *,
                  lotd_cfg: Optional[dict] = None,
                  lotd_auto_compute_cfg: Optional[dict] = None,
@@ -61,7 +61,7 @@ class LoTDEncoding(nnx.Module):
         else:
             p0 = jax.random.uniform(key, (self.meta.n_params,), param_dtype,
                                     -scale, scale)
-        self.flattened_params = nnx.Param(p0)
+        self.flattened_params = nn.Param(p0)
 
         # progressive anneal
         self.annealer = MultiresAnnealer(self.meta.n_levels, **anneal_cfg) \

@@ -8,7 +8,7 @@ for every decomposition type, so each grower below works for ANY meta
 (Flatten/SharedMod) or derives its per-entry coordinates FROM the meta
 layout (FMM), collapsing the reference's per-type class matrix.
 
-TPU notes: all growers are pure batched matmuls / resizes (MXU-friendly);
+Notes: all growers are pure batched matmuls / resizes;
 the FMM coordinate network evaluates a FiLM-modulated MLP over the level's
 pseudo-coordinate grid with einsum over [B, size, W] activations.
 
@@ -23,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.blocks import MLP, get_nonlinearity
 from nr3d_lib_tpu.ops.lotd import LoDMeta, LoDType
@@ -80,7 +80,7 @@ def _level_entry_coords(meta: LoDMeta, level: int) -> np.ndarray:
     raise ValueError(t)
 
 
-class LoTDFlattenGrower(nnx.Module):
+class LoTDFlattenGrower(nn.Module):
     """One MLP emitting every level's parameters at once (reference:
     DenseLoTDGrowerFlatten / Triplane…/VMSplit…/CP…Flatten — the meta's
     layout subsumes the per-decomposition variants)."""
@@ -100,7 +100,7 @@ class LoTDFlattenGrower(nnx.Module):
         return p
 
 
-class _FiLMLayer(nnx.Module):
+class _FiLMLayer(nn.Module):
     """Linear layer whose activation is feature-wise modulated by z
     (the reference's ModulatedLayer role, lotd_batched_growers.py:274 FMM)."""
 
@@ -108,13 +108,13 @@ class _FiLMLayer(nnx.Module):
                  activation: str = "relu", seed: int = 0):
         k1, k2, k3 = jax.random.split(jax.random.key(seed), 3)
         s = 1.0 / np.sqrt(in_f)
-        self.w = nnx.Param(jax.random.uniform(k1, (in_f, out_f),
+        self.w = nn.Param(jax.random.uniform(k1, (in_f, out_f),
                                               jnp.float32, -s, s))
-        self.b = nnx.Param(jnp.zeros((out_f,)))
+        self.b = nn.Param(jnp.zeros((out_f,)))
         sz = 1.0 / np.sqrt(z_dim)
-        self.wz = nnx.Param(jax.random.uniform(k2, (z_dim, 2 * out_f),
+        self.wz = nn.Param(jax.random.uniform(k2, (z_dim, 2 * out_f),
                                                jnp.float32, -sz, sz))
-        self.bz = nnx.Param(jnp.zeros((2 * out_f,)))
+        self.bz = nn.Param(jnp.zeros((2 * out_f,)))
         self.act = get_nonlinearity(activation) or (lambda x: x)
         del k3
 
@@ -127,7 +127,7 @@ class _FiLMLayer(nnx.Module):
         return self.act(y)
 
 
-class LoTDFMMGrower(nnx.Module):
+class LoTDFMMGrower(nn.Module):
     """Feature-wise-modulated coordinate network grower (reference: LoTDFMM,
     lotd_batched_growers.py:274): a shared MLP evaluated on each level's
     pseudo-coordinate grid, FiLM-modulated by z, with a per-level head —
@@ -141,21 +141,21 @@ class LoTDFMMGrower(nnx.Module):
         self.meta = meta
         self.out_scale = out_scale
         d = meta.n_dims
-        self.trunk = nnx.List([
+        self.trunk = nn.List([
             _FiLMLayer(d, W, z_dim, activation=activation, seed=seed),
             *[_FiLMLayer(W, W, z_dim, activation=activation, seed=seed + 1 + i)
               for i in range(D - 1)]])
-        self.heads = nnx.List([
+        self.heads = nn.List([
             _FiLMLayer(W, meta.level_n_feats[l], z_dim, activation="none",
                        seed=seed + 100 + l) for l in range(meta.n_levels)])
         pseudo = {}
         for l in range(meta.n_levels):
             if _level_entry_coords(meta, l) is None:
-                pseudo[str(l)] = nnx.Param(jax.random.normal(
+                pseudo[str(l)] = nn.Param(jax.random.normal(
                     jax.random.key(seed + 200 + l),
                     (meta.level_sizes[l], d)) * 0.5)
-        self.pseudo = nnx.Dict(pseudo)
-        self.shared = nnx.Param(jnp.zeros((meta.n_params,))) \
+        self.pseudo = nn.Dict(pseudo)
+        self.shared = nn.Param(jnp.zeros((meta.n_params,))) \
             if use_shared_encoding else None
 
     def __call__(self, z: Array, max_level: Optional[int] = None) -> Array:
@@ -179,8 +179,8 @@ class LoTDFMMGrower(nnx.Module):
         return p
 
 
-class _ModConv(nnx.Module):
-    """Pointwise (1×1×1) channel map with z modulation — the MXU-friendly
+class _ModConv(nn.Module):
+    """Pointwise (1×1×1) channel map with z modulation — the matmul-friendly
     stand-in for the reference's modulated 3D convs (DenseLoTDGrowerConv):
     spatial mixing comes from the trilinear upsample between blocks, channel
     mixing from this matmul."""
@@ -189,11 +189,11 @@ class _ModConv(nnx.Module):
                  activation: str = "lrelu", seed: int = 0):
         k1, k2 = jax.random.split(jax.random.key(seed))
         s = 1.0 / np.sqrt(in_c)
-        self.w = nnx.Param(jax.random.uniform(k1, (in_c, out_c),
+        self.w = nn.Param(jax.random.uniform(k1, (in_c, out_c),
                                               jnp.float32, -s, s))
-        self.b = nnx.Param(jnp.zeros((out_c,)))
+        self.b = nn.Param(jnp.zeros((out_c,)))
         sz = 1.0 / np.sqrt(z_dim)
-        self.wz = nnx.Param(jax.random.uniform(k2, (z_dim, in_c),
+        self.wz = nn.Param(jax.random.uniform(k2, (z_dim, in_c),
                                                jnp.float32, -sz, sz))
         self.act = get_nonlinearity(
             "relu" if activation == "lrelu" else activation) or (lambda x: x)
@@ -205,7 +205,7 @@ class _ModConv(nnx.Module):
         return self.act(y)
 
 
-class LoTDConvGrower(nnx.Module):
+class LoTDConvGrower(nn.Module):
     """Progressive-growing generator (reference: DenseLoTDGrowerConv,
     lotd_batched_growers.py:577): learnable 4³ const → repeated ×2 trilinear
     upsample + modulated channel maps; a per-level head emits that level's
@@ -222,12 +222,12 @@ class LoTDConvGrower(nnx.Module):
         self.meta = meta
         self.out_scale = out_scale
         C = base_channels
-        self.const = nnx.Param(jax.random.normal(
+        self.const = nn.Param(jax.random.normal(
             jax.random.key(seed), (4, 4, 4, C)) * 0.1)
         # one upsample block per level beyond the first
-        self.blocks = nnx.List([_ModConv(C, C, z_dim, seed=seed + 1 + l)
+        self.blocks = nn.List([_ModConv(C, C, z_dim, seed=seed + 1 + l)
                                 for l in range(meta.n_levels)])
-        self.heads = nnx.List([_ModConv(C, meta.level_n_feats[l], z_dim,
+        self.heads = nn.List([_ModConv(C, meta.level_n_feats[l], z_dim,
                                         activation="none",
                                         seed=seed + 100 + l)
                                for l in range(meta.n_levels)])
@@ -255,7 +255,7 @@ class LoTDConvGrower(nnx.Module):
         return jnp.concatenate(outs, -1)
 
 
-class LoTDSharedModGrower(nnx.Module):
+class LoTDSharedModGrower(nn.Module):
     """Shared base table + per-instance feature-wise modulation (the
     low-parameter end of the reference family — LoTDFMMShared's
     shared-encoding idea, lotd_batched_growers.py:369): every instance reads
@@ -267,13 +267,13 @@ class LoTDSharedModGrower(nnx.Module):
                  seed: int = 0, **_):
         self.meta = meta
         k1, k2 = jax.random.split(jax.random.key(seed))
-        self.base = nnx.Param(jax.random.uniform(
+        self.base = nn.Param(jax.random.uniform(
             k1, (meta.n_params,), jnp.float32, -init_scale, init_scale))
         F = meta.out_features
         sz = 1.0 / np.sqrt(z_dim)
-        self.wz = nnx.Param(jax.random.uniform(k2, (z_dim, 2 * F),
+        self.wz = nn.Param(jax.random.uniform(k2, (z_dim, 2 * F),
                                                jnp.float32, -sz, sz))
-        self.bz = nnx.Param(jnp.zeros((2 * F,)))
+        self.bz = nn.Param(jnp.zeros((2 * F,)))
 
     def __call__(self, z: Array, max_level: Optional[int] = None) -> Array:
         gb = z @ self.wz[...] + self.bz[...]
@@ -295,7 +295,7 @@ class LoTDSharedModGrower(nnx.Module):
         return jnp.concatenate(outs, -1)
 
 
-class LoTDMixedGrower(nnx.Module):
+class LoTDMixedGrower(nn.Module):
     """Different growers over consecutive level ranges (reference:
     MixedLoTDGrower, lotd_batched_growers.py:87): sub-metas are sliced from
     the full meta and each sub-grower's output is concatenated in level
@@ -307,7 +307,7 @@ class LoTDMixedGrower(nnx.Module):
         levels in order."""
         assert sum(s[0] for s in splits) == meta.n_levels
         self.meta = meta
-        self.growers = nnx.List([])
+        self.growers = nn.List([])
         self._n_levels = [s[0] for s in splits]
         start = 0
         for i, (n, gtype, kw) in enumerate(splits):

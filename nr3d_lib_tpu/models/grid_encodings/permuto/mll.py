@@ -11,7 +11,7 @@ initialized to 0 (the net starts as an identity chain and learns how much
 lattice detail to blend in). MLLNet adds the output head and a
 forward-with-nablas path.
 
-TPU notes: the reference's forward_with_nablas hand-chains each layer's
+Notes: the reference's forward_with_nablas hand-chains each layer's
 `backward_dydx` kernel (mll.py:341-410); here one `jax.vjp` through the
 stack reaches the same custom VJPs (ops/permuto.py) — the manual chain is
 a torch-autograd workaround, not architecture.
@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.blocks import MLP, get_nonlinearity
 from nr3d_lib_tpu.models.grid_encodings.permuto.permuto_encoding import (
@@ -44,7 +44,7 @@ def _per_layer(v, d: int, default=None):
     return v
 
 
-class PermutohedralLatticeLayer(nnx.Module):
+class PermutohedralLatticeLayer(nn.Module):
     """One multi-level lattice + optional decoder + optional residual
     (reference mll.py:49).
 
@@ -85,7 +85,7 @@ class PermutohedralLatticeLayer(nnx.Module):
                 f"residual_in_features={self.residual_in_features}")
             self.pad_size = self.out_features - self.residual_in_features
             # learned blend scalar, 0 at init (reference mll.py:108 `zero`)
-            self.zero = nnx.Param(jnp.zeros((), jnp.float32))
+            self.zero = nn.Param(jnp.zeros((), jnp.float32))
 
     def set_anneal_iter(self, it: int):
         self.encoding.set_anneal_iter(it)
@@ -117,7 +117,7 @@ class PermutohedralLatticeLayer(nnx.Module):
                 pre + "params.absmax": float(jnp.abs(p).max())}
 
 
-class MLL(nnx.Module):
+class MLL(nn.Module):
     """Chained lattice layers (reference mll.py:157): layer l encodes the
     OUTPUT of layer l−1; the last layer has no decoder and no residual."""
 
@@ -160,7 +160,7 @@ class MLL(nnx.Module):
                 seed=seed + 101 * l)
             last_out = layer.out_features
             layers.append(layer)
-        self.lattice_layers = nnx.List(layers)
+        self.lattice_layers = nn.List(layers)
         self.last_encoded_features = last_out
         self.out_features = last_out
 
@@ -181,7 +181,7 @@ class MLL(nnx.Module):
         norms = []
         for layer in self.lattice_layers:
             if layer.decoder is not None:
-                for p in jax.tree.leaves(nnx.state(layer.decoder, nnx.Param)):
+                for p in jax.tree.leaves(nn.state(layer.decoder, nn.Param)):
                     norms.append(jnp.linalg.norm(p.ravel(), ord=norm_type))
         return jnp.stack(norms) if norms else jnp.zeros((0,))
 
@@ -244,6 +244,6 @@ class MLLNet(MLL):
     def stat_param(self, prefix: str = "") -> Dict[str, float]:
         out = MLL.stat_param(self, prefix)
         pre = prefix + ("." if prefix and not prefix.endswith(".") else "")
-        for p in jax.tree.leaves(nnx.state(self.to_output, nnx.Param)):
+        for p in jax.tree.leaves(nn.state(self.to_output, nn.Param)):
             out[pre + "to_output.absmax"] = float(jnp.abs(p).max())
         return out

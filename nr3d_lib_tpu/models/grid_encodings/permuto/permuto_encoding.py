@@ -11,7 +11,7 @@ from typing import Optional, Sequence, Tuple, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.annealers import MultiresAnnealer
 from nr3d_lib_tpu.ops import permuto as _permuto
@@ -22,15 +22,15 @@ __all__ = ["PermutoEncoding", "PermutoParams"]
 Array = jax.Array
 
 
-class PermutoParams(nnx.Module):
+class PermutoParams(nn.Module):
     """Meta + flat parameters + encode() for a permuto table — the shared
     backbone of every permuto-based field (reference PermutoEncImpl,
     permuto.py:293). backend:
       * 'xla'  — classic lattice, d+1 gathers/(pt,level) (`ops/permuto.py`)
-      * 'cell' — cell-packed rows, 1 gather/(pt,level) Pallas fast path on
-        TPU (`ops/permuto_cell.py`); falls back to its XLA formulation
-        elsewhere. Collision structure differs (cell-local vertex copies);
-        quality parity is tested in tests/test_permuto_cell.py.
+      * 'cell' — cell-packed rows, 1 gather/(pt,level)
+        (`ops/permuto_cell.py`). Collision structure differs (cell-local
+        vertex copies); quality parity is tested in
+        tests/test_permuto_cell.py.
     Inputs to encode() are in the lattice's [0,1] space."""
 
     def __init__(self, n_dims: int, res_list: Sequence, *,
@@ -43,8 +43,8 @@ class PermutoParams(nnx.Module):
         if backend == "cell":
             assert n_feats in (2, 4), "cell backend packs 2 or 4 feats"
             # auto_dense: coarse levels get collision-free box indexing and
-            # only as many rows as they have reachable cells (VMEM saver).
-            # n_feats=4 selects the bf16-packed variant (permuto_cell4.py):
+            # only as many rows as they have reachable cells.
+            # n_feats=4 selects the bf16 variant (permuto_cell4.py):
             # same rows, double features per gather — halve the levels.
             self.meta = _pcell.make_permuto_cell_meta(
                 n_dims, res_list, hashmap_rows=hashmap_rows,
@@ -54,58 +54,27 @@ class PermutoParams(nnx.Module):
             self.meta = _permuto.make_permuto_meta(
                 n_dims, res_list, n_feats, log2_hashmap_size)
             shape = (self.meta.n_params,)
-        self.flattened_params = nnx.Param(
+        self.flattened_params = nn.Param(
             jax.random.uniform(jax.random.key(seed), shape, jnp.float32,
                                -param_init_std, param_init_std))
         self.out_features = self.meta.out_features
         if backend == "cell" and n_feats == 4:
             self.out_features = 4 * self.meta.n_levels
 
-    def encode(self, inp: Array, frozen_x: bool = False, ho: bool = False,
-               **kw) -> Array:
-        """ho=True: higher-order-differentiable path (eikonal/nablas-grad
-        training) — the cell backend's custom vjp is 1st-order only, so it
-        routes to its pure-XLA formulation there (cf. brick `ho`)."""
+    def encode(self, inp: Array, **kw) -> Array:
+        """Every backend differentiates to any order (eikonal losses)."""
         p = self.flattened_params[...]
         batch = inp.shape[:-1]
         flat = inp.reshape(-1, inp.shape[-1])
-        if self.backend == "cell" and getattr(self, "n_feats", 2) == 4:
+        if self.backend == "cell" and self.n_feats == 4:
             from nr3d_lib_tpu.ops import permuto_cell4 as _pc4
 
-            if ho:
-                y = _pc4.permuto_cell4_encode_xla(flat, p, self.meta)
-            else:
-                fn = (_pc4.permuto_cell4_encode_frozen_x if frozen_x
-                      else _pc4.permuto_cell4_encode)
-                y = fn(flat, p, self.meta)
+            y = _pc4.permuto_cell4_encode_xla(flat, p, self.meta)
         elif self.backend == "cell":
-            if ho:
-                y = _pcell.permuto_cell_encode_xla(flat, p, self.meta)
-            else:
-                fn = (_pcell.permuto_cell_encode_frozen_x if frozen_x
-                      else _pcell.permuto_cell_encode)
-                y = fn(flat, p, self.meta)
+            y = _pcell.permuto_cell_encode_xla(flat, p, self.meta)
         else:
             y = _permuto.permuto_encode(flat, p, self.meta, **kw)
         return y.reshape(*batch, y.shape[-1])
-
-    def nablas(self, g_up: Array, inp: Array) -> Array:
-        """J_enc(inp)ᵀ·g_up in the lattice's [0,1] input space via the
-        dedicated cell nablas kernels (Pallas forward; any-order XLA
-        backward — bary weights are affine in x within a simplex). Cell
-        backends only; the xla backend differentiates `encode(ho=True)`."""
-        assert self.backend == "cell"
-        p = self.flattened_params[...]
-        batch = inp.shape[:-1]
-        flat = inp.reshape(-1, inp.shape[-1])
-        gf = g_up.reshape(-1, g_up.shape[-1])
-        if getattr(self, "n_feats", 2) == 4:
-            from nr3d_lib_tpu.ops import permuto_cell4 as _pc4
-
-            nab = _pc4.permuto_cell4_nablas(gf, flat, p, self.meta)
-        else:
-            nab = _pcell.permuto_cell_nablas(gf, flat, p, self.meta)
-        return nab.reshape(*batch, nab.shape[-1])
 
     def state_dict(self):
         return {"flattened_params": self.flattened_params[...]}
@@ -114,7 +83,7 @@ class PermutoParams(nnx.Module):
         self.flattened_params[...] = jnp.asarray(sd["flattened_params"])
 
 
-class PermutoEncoding(nnx.Module):
+class PermutoEncoding(nn.Module):
     def __init__(self, input_ch: int = 3, *,
                  coarsest_res: float = 16.0, finest_res: float = 2048.0,
                  n_levels: int = 16, n_feats: int = 2,
@@ -131,7 +100,7 @@ class PermutoEncoding(nnx.Module):
         self.in_features = input_ch
         self.out_features = self.meta.out_features
         key = jax.random.key(seed)
-        self.flattened_params = nnx.Param(
+        self.flattened_params = nn.Param(
             jax.random.uniform(key, (self.meta.n_params,), param_dtype,
                                -param_init_std, param_init_std))
         self.annealer = MultiresAnnealer(self.meta.n_levels, **anneal_cfg) \

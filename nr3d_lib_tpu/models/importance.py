@@ -11,21 +11,21 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 __all__ = ["ErrorMap", "ImpSampler"]
 
 Array = jax.Array
 
 
-class ErrorMap(nnx.Module):
+class ErrorMap(nn.Module):
     """Per-frame low-res error accumulation grid [n_frames, eh, ew]."""
 
     def __init__(self, n_frames: int, res: Tuple[int, int] = (128, 128),
                  ema: float = 0.9, dtype=jnp.float32):
         self.res = tuple(res)
         self.ema = float(ema)
-        self.error_map = nnx.Variable(
+        self.error_map = nn.Variable(
             jnp.ones((n_frames,) + self.res, dtype))
 
     def collect(self, frame_idx: Array, xy: Array, errors: Array):
@@ -59,7 +59,7 @@ class ErrorMap(nnx.Module):
         self.error_map[...] = jnp.asarray(sd["error_map"])
 
 
-class ImpSampler(nnx.Module):
+class ImpSampler(nn.Module):
     """Inverse-CDF 2D pixel sampler with uniform mixing
     (reference ImpSampler.sample_pixel:302; frac_uniform keeps exploration)."""
 

@@ -16,7 +16,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.accelerations import OccGridAccel
 from nr3d_lib_tpu.models.spatial import AABBSpace
@@ -75,10 +75,10 @@ class ModelMixin:
             if getattr(m, "annealer", None) is not None:
                 return True
             for v in vars(m).values():
-                if isinstance(v, nnx.Module):
+                if isinstance(v, nn.Module):
                     stack.append(v)
                 elif isinstance(v, (list, tuple)):
-                    stack.extend(x for x in v if isinstance(x, nnx.Module))
+                    stack.extend(x for x in v if isinstance(x, nn.Module))
         return False
 
     def ray_test(self, rays_o: Array, rays_d: Array, near=None, far=None) -> Dict:
@@ -91,14 +91,14 @@ class ModelMixin:
         from nr3d_lib_tpu.utils import tensor_statistics
 
         stats = {}
-        state = nnx.state(self, nnx.Param)
+        state = nn.state(self, nn.Param)
         for path, leaf in jax.tree_util.tree_leaves_with_path(state):
             name = "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
             stats.update(tensor_statistics(leaf, prefix=name))
         return stats
 
 
-class LoTDNeRFModel(nnx.Module, ModelMixin):
+class LoTDNeRFModel(nn.Module, ModelMixin):
     """LoTD NeRF + AABB space + occ-grid accel + marched ray query
     (reference: fields/nerf — NeRFRendererMixin + LoTDNeRF)."""
 
@@ -157,7 +157,7 @@ class LoTDNeRFModel(nnx.Module, ModelMixin):
         raise ValueError(f"Unknown query_mode: {mode}")
 
 
-class LoTDNeuSModel(nnx.Module, ModelMixin):
+class LoTDNeuSModel(nn.Module, ModelMixin):
     """LoTD NeuS + AABB space + occ-grid accel + marched multi-upsample query
     (reference: fields/neus/lotd_neus.py:304 LoTDNeuSModel =
     NeusRendererMixin + LoTDNeuS)."""

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.accelerations.occgrid_batched import (
     OccGridAccelDynamic, OccGridAccelStaticAndDynamic)
@@ -38,7 +38,7 @@ __all__ = ["DynamicPermutoNeuSModel", "GenerativePermutoNeuSModelBatched",
 Array = jax.Array
 
 
-class DynamicPermutoNeuSModel(nnx.Module, ModelMixin):
+class DynamicPermutoNeuSModel(nn.Module, ModelMixin):
     """Time-conditioned NeuS model (reference: NeusRendererMixinDynamic +
     DynamicPermutoConcatNeuS, fields_dynamic/neus/)."""
 
@@ -98,7 +98,7 @@ class DynamicPermutoNeuSModel(nnx.Module, ModelMixin):
                                       **cfg)
 
 
-class _BatchedNeuSModelBase(nnx.Module, ModelMixin):
+class _BatchedNeuSModelBase(nn.Module, ModelMixin):
     """Shared scaffolding for latent-conditioned batched models: autodecoder
     latents + shared AABB space + batched query (reference:
     fields_conditional/neus/renderer_mixin.py:25)."""
@@ -215,7 +215,7 @@ class DynamicGenerativeNeuSModel(_BatchedNeuSModelBase):
             with_rgb=with_rgb, **cfg)
 
 
-class EmerNeRFModel(nnx.Module, ModelMixin):
+class EmerNeRFModel(nn.Module, ModelMixin):
     """Renderable EmerNeRF (reference: fields_dynamic/nerf/renderer_mixin.py:23
     + emernerf.py:62-1375): static+dynamic decomposition, optional flow-based
     temporal aggregation, static∪dynamic occupancy acceleration, and the

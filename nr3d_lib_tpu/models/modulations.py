@@ -13,7 +13,7 @@ from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.models.blocks import MLP
 
@@ -22,7 +22,7 @@ __all__ = ["FiLMLayer", "FiLMSiren", "MappingNetwork"]
 Array = jax.Array
 
 
-class FiLMLayer(nnx.Module):
+class FiLMLayer(nn.Module):
     """sin(γ·(Wx+b) + β) (reference filmsiren.py:11 FiLM-SIREN layer)."""
 
     def __init__(self, in_features: int, out_features: int, *,
@@ -30,9 +30,9 @@ class FiLMLayer(nnx.Module):
                  param_dtype=jnp.float32):
         key = jax.random.key(seed)
         bound = 1.0 / in_features if is_first else math.sqrt(6.0 / in_features) / w0
-        self.w = nnx.Param(jax.random.uniform(key, (in_features, out_features),
+        self.w = nn.Param(jax.random.uniform(key, (in_features, out_features),
                                               param_dtype, -bound, bound))
-        self.b = nnx.Param(jnp.zeros((out_features,), param_dtype))
+        self.b = nn.Param(jnp.zeros((out_features,), param_dtype))
         self.w0 = w0
         self.is_first = is_first
 
@@ -42,7 +42,7 @@ class FiLMLayer(nnx.Module):
         return jnp.sin(scale * freq * h + phase)
 
 
-class MappingNetwork(nnx.Module):
+class MappingNetwork(nn.Module):
     """z → per-layer (freq, phase) (reference modulations.py mapping net)."""
 
     def __init__(self, z_dim: int, n_layers: int, hidden: int, *,
@@ -59,12 +59,12 @@ class MappingNetwork(nnx.Module):
         return freq, phase
 
 
-class FiLMSiren(nnx.Module):
+class FiLMSiren(nn.Module):
     """Latent-modulated SIREN network (reference modulations.py:20-147)."""
 
     def __init__(self, in_features: int, out_features: int, z_dim: int, *,
                  D: int = 4, W: int = 128, w0: float = 30.0, seed: int = 0):
-        self.layers = nnx.List([
+        self.layers = nn.List([
             FiLMLayer(in_features if i == 0 else W, W, is_first=(i == 0),
                       w0=w0, seed=seed + i)
             for i in range(D)])

@@ -12,7 +12,7 @@ from typing import Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.graphics.raytest import ray_box_intersection
 
@@ -21,7 +21,7 @@ __all__ = ["AABBSpace", "AABBDynamicSpace"]
 Array = jax.Array
 
 
-class AABBSpace(nnx.Module):
+class AABBSpace(nn.Module):
     """Axis-aligned box space.
 
     State: ``aabb`` [2, 3] (min, max) — mutable to support `rescale_volume`
@@ -33,7 +33,7 @@ class AABBSpace(nnx.Module):
             center = jnp.zeros(3, dtype) if center is None else jnp.asarray(center, dtype)
             radius = jnp.ones(3, dtype) * (1.0 if radius is None else jnp.asarray(radius, dtype))
             aabb = jnp.stack([center - radius, center + radius])
-        self.aabb = nnx.Variable(jnp.asarray(aabb, dtype))
+        self.aabb = nn.Variable(jnp.asarray(aabb, dtype))
 
     @property
     def center(self) -> Array:
@@ -66,7 +66,7 @@ class AABBSpace(nnx.Module):
                  return_rays: bool = True) -> Dict[str, Array]:
         """Slab test against the box (reference aabb.py:85).
 
-        TPU-native: instead of boolean-indexing hit rays (dynamic shape), we
+        Static shapes: instead of boolean-indexing hit rays (dynamic shape), we
         return full-size arrays plus a hit mask; downstream marching treats
         missed rays as empty packs.
         """
@@ -103,7 +103,7 @@ class AABBDynamicSpace(AABBSpace):
     def __init__(self, aabb=None, ts_keyframes=None, *, dtype=jnp.float32, **kw):
         super().__init__(aabb, dtype=dtype, **kw)
         ts = jnp.asarray(ts_keyframes if ts_keyframes is not None else [0.0, 1.0], dtype)
-        self.ts_keyframes = nnx.Variable(ts)
+        self.ts_keyframes = nn.Variable(ts)
 
     def normalize_ts(self, ts: Array) -> Array:
         """Time → [-1, 1] over the keyframe span (reference normalize_ts)."""

@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.graphics.raytest import ray_box_intersection
 
@@ -22,7 +22,7 @@ __all__ = ["BatchedBlockSpace", "BatchedDynamicSpace"]
 Array = jax.Array
 
 
-class BatchedBlockSpace(nnx.Module):
+class BatchedBlockSpace(nn.Module):
     """B instance AABBs: ``aabb`` [B, 2, 3]."""
 
     def __init__(self, aabb=None, *, n_batch: Optional[int] = None, dtype=jnp.float32):
@@ -30,7 +30,7 @@ class BatchedBlockSpace(nnx.Module):
             assert n_batch is not None
             unit = jnp.stack([-jnp.ones(3, dtype), jnp.ones(3, dtype)])
             aabb = jnp.tile(unit[None], (n_batch, 1, 1))
-        self.aabb = nnx.Variable(jnp.asarray(aabb, dtype))
+        self.aabb = nn.Variable(jnp.asarray(aabb, dtype))
 
     @property
     def n_batch(self) -> int:
@@ -85,7 +85,7 @@ class BatchedDynamicSpace(BatchedBlockSpace):
         if ts_range is None:
             ts_range = jnp.tile(jnp.asarray([[-1.0, 1.0]], dtype),
                                 (self.n_batch, 1))
-        self.ts_range = nnx.Variable(jnp.asarray(ts_range, dtype))
+        self.ts_range = nn.Variable(jnp.asarray(ts_range, dtype))
 
     @staticmethod
     def normalize_all_ts_keyframes(all_ts):

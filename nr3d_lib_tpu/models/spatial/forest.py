@@ -1,6 +1,6 @@
 """Forest block space: large-scale scenes as a grid of occupied blocks.
 
-TPU-native re-design of the reference's kaolin-SPC-octree forest
+Re-design of the reference's kaolin-SPC-octree forest
 (reference: nr3d_lib/models/spatial/forest.py:162-396 ForestBlockSpace +
 csrc/forest N6 ForestMeta). The reference stores occupied blocks in an
 octree and raytraces it with kaolin SPC; here the block set is a dense
@@ -21,7 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.graphics.raytest import ray_box_intersection
 
@@ -31,14 +31,13 @@ Array = jax.Array
 
 
 def _topk_by_key(key: Array, payloads, k: int):
-    """k smallest-key entries per row with their payloads, via lax.sort —
-    argsort + take_along_axis scalarizes the lane gathers on TPU (see
-    pack_ops.dense_to_budgeted)."""
+    """k smallest-key entries per row with their payloads, via one
+    lax.sort (not argsort + take_along_axis)."""
     sorted_ = jax.lax.sort((key, *payloads), num_keys=1, is_stable=True)
     return tuple(p[:, :k] for p in sorted_[1:])
 
 
-class ForestBlockSpace(nnx.Module):
+class ForestBlockSpace(nn.Module):
     def __init__(self, *, level: int = 4, origin=(-1.0, -1.0, -1.0),
                  block_size: float = 0.5, resolution: Optional[Sequence[int]] = None,
                  dtype=jnp.float32):
@@ -48,11 +47,11 @@ class ForestBlockSpace(nnx.Module):
             resolution = (2 ** level,) * 3
         self.resolution = tuple(int(r) for r in resolution)
         self.level = level
-        self.origin = nnx.Variable(jnp.asarray(origin, dtype))
+        self.origin = nn.Variable(jnp.asarray(origin, dtype))
         self.block_size = float(block_size)
-        self.occupied = nnx.Variable(jnp.zeros(self.resolution, bool))
+        self.occupied = nn.Variable(jnp.zeros(self.resolution, bool))
         # dense slot per occupied block; -1 for empty (rebuilt on populate)
-        self.block_idx = nnx.Variable(-jnp.ones(self.resolution, jnp.int32))
+        self.block_idx = nn.Variable(-jnp.ones(self.resolution, jnp.int32))
         self.n_trees = 0
 
     # ------------------------------------------------------------ populate
@@ -68,7 +67,7 @@ class ForestBlockSpace(nnx.Module):
 
     def _build_hierarchy(self, factor: int = 4, max_top: int = 4096):
         """N-level culling structure over the occupied blocks — the
-        TPU-native stand-in for the reference's SPC octree levels (reference
+        stand-in for the reference's SPC octree levels (reference
         spatial/forest.py:305-396 + kaolin raytrace): supercells of
         `factor`³ children per level, stacked until the coarsest level has
         ≤ `max_top` cells. Ray tests dense-test the coarsest level, then
@@ -247,7 +246,7 @@ class ForestBlockSpace(nnx.Module):
                           coarse_keep: int = 16) -> Dict[str, Array]:
         """Per-ray block segments, entry-sorted — the reference's
         SPC-raytrace ray_test (forest.py:305-396, kaolin raytrace_cuda) as a
-        TPU-native pass. Small forests run one dense [R, n_trees] slab test
+        static-shape pass. Small forests run one dense [R, n_trees] slab test
         + per-ray sort; large forests (or hierarchy=True) first cull against
         the supercell level (`_build_hierarchy`) and slab-test only the
         member blocks of the `coarse_keep` nearest supercell hits — the

@@ -3,7 +3,7 @@
 Reference: nr3d_lib/models/tetrahedral/dmtet.py:15 (DMTet mesh extraction
 from per-vertex SDF over a deformable tetrahedral grid; splatet.py variant).
 
-TPU design: static shapes — every tet emits 2 triangle slots with a
+Design: static shapes — every tet emits 2 triangle slots with a
 validity mask (empty tets → degenerate masked triangles), so extraction
 stays inside jit and gradients flow to both SDF values and vertex
 positions (the crossing-point lerp is differentiable).

@@ -1,1 +1,1 @@
-"""L1: pure-function compute kernels (XLA reference impls + Pallas hot paths)."""
+"""L1: pure-function compute kernels (plain XLA)."""

@@ -1,6 +1,6 @@
 """LoTD — Levels of Tensorial Decomposition grid encoding (functional core).
 
-TPU-native re-design of the reference's CUDA LoTD kernels
+Re-design of the reference's CUDA LoTD kernels
 (reference: csrc/lotd/include/lotd/{lotd_types.h:16-26,lotd_cuda.h,
 lotd_encoding.h:114-1301}; python API nr3d_lib/models/grid_encodings/lotd/
 lotd.py:40-321). Eight per-level decomposition types over multi-level grids

@@ -1,16 +1,9 @@
-"""Brick-layout LoTD encoding — the TPU-native fast path.
+"""Brick-layout LoTD encoding.
 
-Motivation (measured on TPU v5e, see experiments/pallas_gather_probe.py):
-random row gathers issue at ~250M rows/s through XLA and ~660M rows/s
-through a fully-unrolled Pallas scalar loop — the gather ISSUE RATE, not
-bandwidth, bounds any NGP-style encoding. The CUDA reference performs
-8 corner-gathers per point per level; on TPU that is unaffordable.
-
-TPU-native redesign: pack a 4×4×4-vertex **brick** (64 vertices × 2 feats)
-into one 128-lane row. One row-gather per (point, level) fetches ALL eight
-interpolation corners; corner extraction is an in-register lane gather
-(`tpu.dynamic_gather`, ~vreg/cycle). Bricks cover 3×3×3 cells and overlap
-by one vertex plane so every cell's corners live in a single brick.
+Layout: a 4×4×4-vertex **brick** (64 vertices × 2 feats) is one 128-wide
+table row, so one row gather per (point, level) fetches all eight
+interpolation corners. Bricks cover 3×3×3 cells and overlap by one vertex
+plane so every cell's corners live in a single brick.
 
   * Dense levels: bricks laid out in C order; canonical parameters remain
     the vertex grid — the brick table is materialized by a (cheap,
@@ -22,13 +15,13 @@ by one vertex plane so every cell's corners live in a single brick.
     hash features are already collision-discontinuous; PSNR parity is
     validated in tests).
 
-Reference for behavior being replaced: csrc/lotd (kernel_lod Dense/Hash
-paths); this file is a from-scratch TPU design, not a translation.
+The encode is plain XLA (`brick_encode_xla`), differentiable to any order
+by autodiff. Reference for the behavior: csrc/lotd (kernel_lod Dense/Hash
+paths); this file is a from-scratch design, not a translation.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 from functools import cached_property
@@ -40,10 +33,9 @@ import numpy as np
 
 from nr3d_lib_tpu.ops.lotd import HASH_PRIMES
 
-__all__ = ["BrickMeta", "make_brick_meta", "brick_encode",
-           "brick_encode_frozen_x", "brick_encode_xla",
-           "materialize_dense_brick_table", "vertex_grid_to_brick_rows",
-           "BRICK_W", "LANES"]
+__all__ = ["BrickMeta", "make_brick_meta", "brick_encode_xla",
+           "materialize_dense_brick_table",
+           "vertex_grid_to_brick_rows", "BRICK_W", "LANES"]
 
 Array = jax.Array
 
@@ -65,10 +57,6 @@ class BrickLevel:
 @dataclass(frozen=True)
 class BrickMeta:
     levels: Tuple[BrickLevel, ...]
-    # False disables the one-hot MXU gather (`_mxu_levels`): required when
-    # rows carry per-block offsets (forest/batched encode) — the static
-    # level spans no longer hold
-    mxu: bool = True
 
     @cached_property
     def total_rows(self) -> int:
@@ -160,16 +148,20 @@ def _corner_weights(frac: Array) -> Array:
     return jnp.prod(w, axis=-1)
 
 
-# ------------------------------------------------------------- XLA reference
-def brick_encode_xla(x: Array, table: Array, meta: BrickMeta) -> Array:
-    """Pure-XLA reference implementation (slow gathers; used for tests,
-    CPU execution, and higher-order autodiff fallback).
+# -------------------------------------------------------------------- encode
+def brick_encode_xla(x: Array, table: Array, meta: BrickMeta,
+                     bidx: Optional[Array] = None) -> Array:
+    """Brick LoTD encode: x [N,3] in [0,1] × table [total_rows, 128] →
+    [N, 2·L].
 
-    table: [total_rows, 128]. Returns [N, 2·L].
-    """
+    With `bidx` (forest / batched scenes) the table is [B·total_rows, 128]
+    and block b owns rows [b·total_rows, (b+1)·total_rows); bidx < 0 clamps
+    to block 0 — callers mask those points."""
     outs = []
     for level in meta.levels:
         row, lane0, frac = _level_rows_and_lanes(x, level)
+        if bidx is not None:
+            row = row + jnp.maximum(bidx, 0).astype(jnp.int32) * meta.total_rows
         rows = jnp.take(table, row, axis=0, mode="clip")             # [N,128]
         lanes = lane0[:, None] + jnp.asarray(_CORNER_OFF)[None, :]   # [N,8]
         f0 = jnp.take_along_axis(rows, lanes, axis=1)                # [N,8]
@@ -210,1949 +202,3 @@ def materialize_dense_brick_table(vertex_params: Array, level: BrickLevel
     keeping the encoding C0 like the reference Dense type."""
     idx = jnp.asarray(vertex_grid_to_brick_rows(level))
     return vertex_params[idx]
-
-
-# -------------------------------------------------------- pallas kernels (v2)
-#
-# Round-2 kernel (VERDICT #1): the round-1 kernel spent ~3/4 of its time in
-# per-level 16-lane VPU ops (padded to 128 lanes → 8× wasted issue slots) and
-# gathered one row per (point, level) unconditionally. v2:
-#   * lane-packs ALL levels: every vector op runs at full 128-lane occupancy
-#     (lane = level·16 + corner·2 + feat);
-#   * final per-level reductions are ONE MXU matmul [tile,128]@[128,2L]
-#     instead of masked VPU reduction chains;
-#   * a Pallas backward (scatter-accumulate dL/dtable + fused dL/dx matmul)
-#     so training runs the fast path end to end (round-1 fell back to the
-#     XLA formulation for every backward).
-
-def _prologue(x: Array, meta: BrickMeta, dtype, tile: int = 2048):
-    """Per-level indexing arrays for the kernels.
-
-    Returns rows [L,N] i32, lane_c [N,L] i32, frac_c [N,3L] dtype."""
-    rows, lanes, fracs = [], [], []
-    for level in meta.levels:
-        r, l0, fr = _level_rows_and_lanes(x, level)
-        rows.append(r)
-        lanes.append(l0)
-        fracs.append(fr)
-    row_arr = jnp.stack(rows)                                    # [L, N]
-    n = x.shape[0]
-    lane_c = jnp.stack(lanes, axis=-1)                           # [N, L]
-    frac_c = jnp.stack(fracs, axis=1).reshape(n, 3 * meta.n_levels)
-    return row_arr, lane_c.astype(jnp.int32), frac_c.astype(dtype)
-
-
-def _reduce_matrix(n_levels: int) -> np.ndarray:
-    """[128, 2L] 0/1 matrix: lane l·16+q sums into output col l·2+(q&1)."""
-    m = np.zeros((LANES, 2 * n_levels), np.float32)
-    for lane in range(16 * n_levels):
-        m[lane, (lane // 16) * 2 + (lane & 1)] = 1.0
-    return m
-
-
-def _dx_matrix(meta: BrickMeta) -> np.ndarray:
-    """[128, 4] matrix folding trilinear-weight derivative signs and the
-    frac→x scale (res−2) per level into one MXU reduction (col 3 unused)."""
-    m = np.zeros((LANES, 4), np.float32)
-    for l, level in enumerate(meta.levels):
-        for q in range(16):
-            k = q >> 1
-            bits = ((k >> 2) & 1, (k >> 1) & 1, k & 1)
-            lane = l * 16 + q
-            for a in range(3):
-                m[lane, a] = (2.0 * bits[a] - 1.0) * (level.res[a] - 2)
-    return m
-
-
-def _copy_rows(dst_ref, dst_base, table_ref, row_of, count):
-    """Unrolled row-gather loop: dst[dst_base+k] = table[row_of(k)].
-
-    With _STORE_BATCH = s > 1, s loaded rows are packed into one (s,128)
-    value (VPU sublane concat — a different pipe than the scalar-issued
-    loads) and stored with ONE aligned store instead of s: the per-row
-    store issue is the other half of the measured 1.76 cyc/row.
-    dst_base must be s-aligned (all callers use multiples of 64)."""
-    from jax.experimental import pallas as pl
-
-    sb = _STORE_BATCH
-    if sb <= 1:
-        for k in range(count):
-            dst_ref[pl.ds(dst_base + k, 1), :] = \
-                table_ref[pl.ds(row_of(k), 1), :]
-    else:
-        assert count % sb == 0
-        for k in range(0, count, sb):
-            rows = jnp.concatenate(
-                [table_ref[pl.ds(row_of(k + i), 1), :] for i in range(sb)],
-                axis=0)
-            dst_ref[pl.ds(dst_base + k, sb), :] = rows
-
-
-def _scatter_rows(dtab_ref, sbuf, sb_base, row_of, count):
-    """Unrolled scatter-add loop: dtab[row_of(k)] += sbuf[sb_base+k].
-
-    The dtab RMW targets are random rows (cannot batch), but the STAGED
-    slab reads are consecutive: with _STORE_BATCH = s > 1 one (s,128)
-    load replaces s per-row loads; row i comes out as a static slice
-    (vector work). Duplicate target rows stay sequential RMWs — exact."""
-    from jax.experimental import pallas as pl
-
-    sb = _STORE_BATCH
-    if sb <= 1:
-        for k in range(count):
-            r = row_of(k)
-            dtab_ref[pl.ds(r, 1), :] = dtab_ref[pl.ds(r, 1), :] + \
-                sbuf[pl.ds(sb_base + k, 1), :]
-    else:
-        assert count % sb == 0
-        for k in range(0, count, sb):
-            blk = sbuf[pl.ds(sb_base + k, sb), :]
-            for i in range(sb):
-                r = row_of(k + i)
-                dtab_ref[pl.ds(r, 1), :] = dtab_ref[pl.ds(r, 1), :] + \
-                    blk[i:i + 1, :]
-
-
-def _gather_phase(meta, tile, rows_ref, table_ref, scratch_ref):
-    """Gathers into scratch[l·tile + n, :] with a fully-unrolled scalar
-    loop — measured 1.76 cyc/row (point-outer ×64 unroll; level-outer was
-    2.93). Coherence-exploiting variants were built and measured SLOWER:
-    a lax.cond per sample-group cost 42 cyc/pt and phase-partitioned
-    dynamic-length loops 57 cyc/pt vs 24 cyc/pt for this loop — dynamic
-    trip counts cannot unroll, so each iteration serializes at ~15 scalar
-    cycles while the unrolled loop pipelines at ~1.8. On this hardware
-    uniform unrolled work beats clever control flow (docs/DESIGN.md §3).
-    """
-    from jax.experimental import pallas as pl
-
-    L = meta.n_levels
-    INNER = 64
-    sb = max(_STORE_BATCH, 1)
-
-    def gather_body(i, _):
-        base = i * INNER
-        # sb=1: point-outer × level-inner (as measured fastest).
-        # sb>1: groups of sb points, level-inner — each (level, group)
-        # writes sb consecutive scratch rows with ONE store.
-        for k in range(0, INNER, sb):
-            n = base + k
-            for l in range(L):
-                _copy_rows(scratch_ref, l * tile + n, table_ref,
-                           lambda j, l=l, n=n: rows_ref[l, n + j], sb)
-        return 0
-
-    jax.lax.fori_loop(0, tile // INNER, gather_body, 0)
-
-
-def _packed_lanes(meta, tile, lane_ref, frac_ref, scratch_ref):
-    """Vector phase: extract corners + trilinear weights, lane-packed.
-
-    Returns (g_packed [tile,128], w [tile,128], s_sel [3][tile,128]) where
-    lane = level·16 + q, q = corner·2 + feat; lanes ≥ 16L are garbage and
-    must be masked by the caller's reduction matrix.
-    """
-    from jax.experimental import pallas as pl
-
-    L = meta.n_levels
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (tile, LANES), 1)
-    lvl = lane_i >> 4                                            # lane//16
-    q = lane_i & 15
-    k = q >> 1
-    bx = (k >> 2) & 1
-    by = (k >> 1) & 1
-    bz = k & 1
-    off = (bx * (BRICK_W * BRICK_W) + by * BRICK_W + bz) * N_FEAT + (q & 1)
-
-    lane_pad = lane_ref[:]                                       # [tile, L]
-    lvl_c = jnp.minimum(lvl, L - 1)
-    lane0 = jnp.take_along_axis(
-        jnp.pad(lane_pad, ((0, 0), (0, LANES - lane_pad.shape[1]))),
-        lvl_c, axis=1)
-    wanted = lane0 + off                                         # [tile,128]
-
-    g = jnp.zeros((tile, LANES), scratch_ref.dtype)
-    sel_mask = []
-    for l in range(L):
-        rows = scratch_ref[pl.ds(l * tile, tile), :]
-        g_l = jnp.take_along_axis(rows, wanted, axis=1)
-        g = jnp.where(lvl == l, g_l, g)
-
-    frac_pad = jnp.pad(frac_ref[:],
-                       ((0, 0), (0, LANES - frac_ref.shape[1])))  # [tile,128]
-    s = []
-    for a, bit in enumerate((bx, by, bz)):
-        f_a = jnp.take_along_axis(frac_pad, jnp.minimum(3 * lvl_c + a,
-                                                        LANES - 1), axis=1)
-        s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-    w = s[0] * s[1] * s[2]
-    return g, w, s
-
-
-def _fwd_kernel_v2(meta: BrickMeta, tile: int,
-                   rows_ref, lane_ref, frac_ref, table_ref, m_ref,
-                   out_ref, scratch_ref):
-    _gather_phase(meta, tile, rows_ref, table_ref, scratch_ref)
-    g, w, _ = _packed_lanes(meta, tile, lane_ref, frac_ref, scratch_ref)
-    prod = g * w
-    out_ref[:, :] = jnp.dot(prod, m_ref[:],
-                            preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION
-                            ).astype(out_ref.dtype)
-
-
-def _mxu_span(meta: BrickMeta, l: int) -> Tuple[int, int]:
-    """(start, k_pad) of the 128-aligned table slab holding level l's rows."""
-    k_pad = -(-meta.levels[l].n_rows // LANES) * LANES
-    start = min(meta.levels[l].row_offset, meta.total_rows - k_pad)
-    return start, k_pad
-
-
-def _mxu_levels(meta: BrickMeta):
-    """Levels whose rows are fetched by a one-hot MXU matmul instead of
-    scalar gathers: small tables (≤ _MXU_MAX_ROWS rows). Each such level
-    removes ~2 scalar issues/pt from the critical path — the gather-issue
-    pipe is the measured kernel bottleneck (docs/DESIGN.md §3) — while the
-    matmul rides the otherwise-idle MXU. The one-hot compare costs
-    ~k_pad/1024 VPU cyc/pt, so the row cap keeps it below the scalar time
-    it saves. Exact for dense AND hash levels (a one-hot matmul is just a
-    gather)."""
-    if not _MXU_DENSE or not meta.mxu:
-        return ()
-    return tuple(l for l, lev in enumerate(meta.levels)
-                 if lev.n_rows <= _MXU_MAX_ROWS
-                 and _mxu_span(meta, l)[0] >= 0)
-
-
-def _mxu_rows(meta, table_ref, rowsv_ref, base, block, l):
-    """rows_l [block, 128] for an MXU level: onehot(row_id) @ table_slab."""
-    from jax.experimental import pallas as pl
-
-    start, k_pad = _mxu_span(meta, l)
-    rid = rowsv_ref[pl.ds(base, block), l:l + 1] - start    # [block,1]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (block, k_pad), 1)
-    onehot = (iota == rid).astype(table_ref.dtype)
-    tab = table_ref[pl.ds(start, k_pad), :]                 # [k_pad,128]
-    return jnp.dot(onehot, tab, preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION
-                   ).astype(table_ref.dtype)
-
-
-def _fwd_kernel_v3(meta: BrickMeta, tile: int, block: int, want_g: bool,
-                   rows_ref, lane_ref, frac_ref, rowsv_ref, table_ref,
-                   m_ref, *refs):
-    """Software-pipelined forward: while the VPU extracts block j from one
-    buffer, the scalar core gathers block j+1's rows into the other.
-
-    v2 serializes the two phases (gather ~14 cyc/pt, then extraction ~5);
-    the scalar and vector pipes are separate units, and the dual-issue probe
-    (experiments/kernel_probe2.py mix) measured ~55% of scalar gather time
-    hidden behind interleaved vector work. Interleaving is per LEVEL: each
-    of block j's 8 extraction steps is preceded by block j+1's level-l
-    gather burst, giving the scheduler alternating scalar/vector chunks with
-    no same-ref hazards (A/B buffers alternate by block parity).
-
-    want_g: additionally store the lane-packed corner values g [tile,128]
-    (one aligned vector store per block — ~0.5 cyc/pt). The v4 backward
-    reads g back instead of re-issuing the 8 scalar gathers per point,
-    which is the training path's single largest scalar cost.
-    """
-    from jax.experimental import pallas as pl
-
-    if want_g:
-        out_ref, g_out_ref, buf_a, buf_b = refs
-    else:
-        out_ref, buf_a, buf_b = refs
-        g_out_ref = None
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    mxu = _mxu_levels(meta)
-
-    def gather_level(buf, base, l):
-        if l in mxu:
-            return
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    def extract(buf, base, gather_next):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-        lvl = lane_i >> 4
-        q = lane_i & 15
-        k = q >> 1
-        bx = (k >> 2) & 1
-        by = (k >> 1) & 1
-        bz = k & 1
-        off = (bx * (BRICK_W * BRICK_W) + by * BRICK_W + bz) * N_FEAT \
-            + (q & 1)
-        lvl_c = jnp.minimum(lvl, L - 1)
-        lane0 = jnp.take_along_axis(
-            jnp.pad(lane_blk, ((0, 0), (0, LANES - lane_blk.shape[1]))),
-            lvl_c, axis=1)
-        wanted = lane0 + off
-        g = jnp.zeros((block, LANES), buf.dtype)
-        for l in range(L):
-            if gather_next is not None:
-                buf_w, base_w = gather_next
-                gather_level(buf_w, base_w, l)
-            if l in mxu:
-                rows = _mxu_rows(meta, table_ref, rowsv_ref, base, block, l)
-            else:
-                rows = buf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-        if g_out_ref is not None:
-            g_out_ref[pl.ds(base, block), :] = g
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        w = jnp.ones((block, LANES), buf.dtype)
-        for a, bit in enumerate((bx, by, bz)):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl_c + a, LANES - 1), axis=1)
-            w = w * jnp.where(bit > 0, f_a, 1.0 - f_a)
-        out_ref[pl.ds(base, block), :] = jnp.dot(
-            g * w, m_ref[:], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION
-        ).astype(out_ref.dtype)
-
-    for l in range(L):
-        gather_level(buf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        extract(buf_a, b0, (buf_b, b0 + block))
-
-        @pl.when(b0 + 2 * block < tile)
-        def _():
-            extract(buf_b, b0 + block, (buf_a, b0 + 2 * block))
-
-        @pl.when(b0 + 2 * block >= tile)
-        def _():
-            extract(buf_b, b0 + block, None)
-
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-
-
-def _bwd_kernel_v2(meta: BrickMeta, tile: int, need_dx: bool,
-                   rows_ref, lane_ref, frac_ref, table_ref, m_ref,
-                   gup_ref, dtab_ref, dx_ref, scratch_ref):
-    """Backward: dL/dtable scatter-accumulate + dL/dx fused MXU reduction.
-
-    m_ref: [128, 4] _dx_matrix. gup_ref: [tile, 2L] upstream dL/dy.
-    dtab_ref accumulates across sequential grid steps (constant index_map).
-    With need_dx=False the table gather + corner extraction are skipped
-    entirely (dL/dtable needs only the trilinear weights) — measured
-    ~50 vs ~60 cyc/pt; used when positions carry no gradient (plain
-    radiance-field training, reference lotd.py:48 LoTDFunction without
-    need_input_grad).
-    """
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_ref[:, :] = jnp.zeros_like(dtab_ref)
-
-    L = meta.n_levels
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (tile, LANES), 1)
-    lvl = jnp.minimum(lane_i >> 4, L - 1)
-    # upstream per lane: gup[n, (lane//16)·2 + (lane&1)]
-    gup_pad = jnp.pad(gup_ref[:], ((0, 0), (0, LANES - gup_ref.shape[1])))
-    gb = jnp.take_along_axis(gup_pad, lvl * 2 + (lane_i & 1), axis=1)
-
-    if need_dx:
-        _gather_phase(meta, tile, rows_ref, table_ref, scratch_ref)
-        g, w, s = _packed_lanes(meta, tile, lane_ref, frac_ref, scratch_ref)
-
-        # ---- dL/dx: Σ_lane gb·g·(2b_a−1)·s_b·s_c·(res_a−2), via m_ref
-        h = gb * g
-        tx = h * s[1] * s[2]
-        ty = h * s[0] * s[2]
-        tz = h * s[0] * s[1]
-        # three single-column matmuls keep the per-axis sign/scale separate
-        dx0 = jnp.dot(tx, m_ref[:, 0:1], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-        dx1 = jnp.dot(ty, m_ref[:, 1:2], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-        dx2 = jnp.dot(tz, m_ref[:, 2:3], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-        dx_ref[:, :] = jnp.concatenate([dx0, dx1, dx2],
-                                       axis=-1).astype(dx_ref.dtype)
-    else:
-        # weights only — no table data needed
-        q = lane_i & 15
-        k = q >> 1
-        bits = ((k >> 2) & 1, (k >> 1) & 1, k & 1)
-        frac_pad = jnp.pad(frac_ref[:],
-                           ((0, 0), (0, LANES - frac_ref.shape[1])))
-        s = []
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-        w = s[0] * s[1] * s[2]
-        dx_ref[:, :] = jnp.zeros_like(dx_ref)
-
-    # ---- dL/dtable: contribution per lane = gb·w, lane-scattered back to
-    # the brick-row layout, then per-row scatter-add.
-    contrib = gb * w                                             # [tile,128]
-    for l in range(L):
-        # inverse lane map: target lane m holds corner q iff d = m − lane0
-        # matches the off() bit pattern (d = 32dx + 8dy + 2dz + f)
-        lane_pad = jnp.pad(lane_ref[:],
-                           ((0, 0), (0, LANES - lane_ref.shape[1])))
-        lane0 = jnp.take_along_axis(lane_pad,
-                                    jnp.full((tile, LANES), l, jnp.int32),
-                                    axis=1)
-        d = lane_i - lane0
-        valid = (d >= 0) & (d <= 43) & ((d & 0b0010100) == 0)
-        dxb = (d >> 5) & 1
-        dyb = (d >> 3) & 1
-        dzb = (d >> 1) & 1
-        qinv = dxb * 8 + dyb * 4 + dzb * 2 + (d & 1)
-        src = jnp.clip(l * 16 + qinv, 0, LANES - 1)
-        slab = jnp.where(valid, jnp.take_along_axis(contrib, src, axis=1),
-                         0.0)
-        # reuse gather scratch as the scatter staging slab
-        scratch_ref[pl.ds(l * tile, tile), :] = slab
-
-    INNER = 64  # match the gather loop's tuning (16 measured 67 cyc/pt, 64 → 60)
-
-    def scatter_body(i, _):
-        base = i * INNER
-        for kk in range(INNER):
-            n = base + kk
-            for l in range(L):
-                r = rows_ref[l, n]
-                dtab_ref[pl.ds(r, 1), :] = dtab_ref[pl.ds(r, 1), :] + \
-                    scratch_ref[pl.ds(l * tile + n, 1), :]
-        return 0
-
-    jax.lax.fori_loop(0, tile // INNER, scatter_body, 0)
-
-
-def _bwd_kernel_v3(meta: BrickMeta, tile: int, block: int, need_dx: bool,
-                   rows_ref, lane_ref, frac_ref, rowsv_ref, rowsh_ref,
-                   table_ref, m_ref, gup_ref, dtab_ref, dx_ref,
-                   gbuf_a, gbuf_b, sbuf_a, sbuf_b):
-    """Software-pipelined backward (same scheme as `_fwd_kernel_v3`): while
-    the VPU builds block j's scatter slab (+ dL/dx), the scalar core gathers
-    block j+1's table rows into the other gather buffer AND scatter-adds
-    block j−1's finished slab into dL/dtable. Blocks alternate A/B buffers
-    so every in-flight phase touches disjoint refs; the dtab read-modify-
-    write chain stays in block order (duplicate rows remain correct).
-
-    MXU levels (`_mxu_levels`) leave the scalar pipe entirely: rows come
-    from a one-hot matmul (as in the forward) and the slab scatter-add is
-    onehotᵀ @ slab — an exact segment-sum into the level's table slab."""
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_ref[:, :] = jnp.zeros_like(dtab_ref)
-
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    mxu = _mxu_levels(meta)
-
-    def gather_level(buf, base, l):
-        if l in mxu:
-            return
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    def scatter_level(sbuf, base, l):
-        if l in mxu:
-            start, k_pad = _mxu_span(meta, l)
-            rid = rowsh_ref[l:l + 1, pl.ds(base, block)] - start  # [1,block]
-            iota0 = jax.lax.broadcasted_iota(jnp.int32, (k_pad, block), 0)
-            onehot_t = (iota0 == rid).astype(dtab_ref.dtype)
-            slab = sbuf[pl.ds(l * block, block), :]
-            dtab_ref[pl.ds(start, k_pad), :] = (
-                dtab_ref[pl.ds(start, k_pad), :]
-                + jnp.dot(onehot_t, slab,
-                          preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION
-                          ).astype(dtab_ref.dtype))
-            return
-        _scatter_rows(dtab_ref, sbuf, l * block,
-                      lambda j: rows_ref[l, base + j], block)
-
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> 4, L - 1)
-    q = lane_i & 15
-    kq = q >> 1
-    bits = ((kq >> 2) & 1, (kq >> 1) & 1, kq & 1)
-    off = (bits[0] * (BRICK_W * BRICK_W) + bits[1] * BRICK_W + bits[2]) \
-        * N_FEAT + (q & 1)
-
-    def process(gbuf, sbuf, base, next_base, prev_base, prev_sbuf):
-        """Vector work for block at `base` interleaved per level with the
-        scalar gather of `next_base` and the scalar scatter of `prev_base`."""
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        gup_blk = gup_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        gup_pad = jnp.pad(gup_blk, ((0, 0), (0, LANES - gup_blk.shape[1])))
-        gb = jnp.take_along_axis(gup_pad, lvl * 2 + (lane_i & 1), axis=1)
-
-        s = []
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-        w = s[0] * s[1] * s[2]
-
-        lane0 = jnp.take_along_axis(lane_pad, lvl, axis=1)
-        wanted = lane0 + off
-        g = jnp.zeros((block, LANES), gbuf.dtype)
-        other_gbuf = gbuf_b if gbuf is gbuf_a else gbuf_a
-        for l in range(L):
-            if need_dx:
-                # next gather predicated off past the last block
-                @pl.when(next_base < tile)
-                def _(l=l):
-                    gather_level(other_gbuf, next_base, l)
-
-            # previous block's scatter predicated off for the first block
-            @pl.when(prev_base >= 0)
-            def _(l=l):
-                scatter_level(prev_sbuf, prev_base, l)
-
-            if need_dx:
-                if l in mxu:
-                    rows_l = _mxu_rows(meta, table_ref, rowsv_ref, base,
-                                       block, l)
-                else:
-                    rows_l = gbuf[pl.ds(l * block, block), :]
-                g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-                g = jnp.where(lvl == l, g_l, g)
-
-        if need_dx:
-            h = gb * g
-            tx = h * s[1] * s[2]
-            ty = h * s[0] * s[2]
-            tz = h * s[0] * s[1]
-            dx0 = jnp.dot(tx, m_ref[:, 0:1],
-                          preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-            dx1 = jnp.dot(ty, m_ref[:, 1:2],
-                          preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-            dx2 = jnp.dot(tz, m_ref[:, 2:3],
-                          preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-            dx_ref[pl.ds(base, block), :] = jnp.concatenate(
-                [dx0, dx1, dx2], axis=-1).astype(dx_ref.dtype)
-        else:
-            dx_ref[pl.ds(base, block), :] = jnp.zeros(
-                (block, 3), dx_ref.dtype)
-
-        contrib = gb * w
-        for l in range(L):
-            lane0_l = jnp.take_along_axis(
-                lane_pad, jnp.full((block, LANES), l, jnp.int32), axis=1)
-            d = lane_i - lane0_l
-            valid = (d >= 0) & (d <= 43) & ((d & 0b0010100) == 0)
-            dxb = (d >> 5) & 1
-            dyb = (d >> 3) & 1
-            dzb = (d >> 1) & 1
-            qinv = dxb * 8 + dyb * 4 + dzb * 2 + (d & 1)
-            src = jnp.clip(l * 16 + qinv, 0, LANES - 1)
-            sbuf[pl.ds(l * block, block), :] = jnp.where(
-                valid, jnp.take_along_axis(contrib, src, axis=1), 0.0)
-
-    if need_dx:
-        for l in range(L):
-            gather_level(gbuf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(gbuf_a, sbuf_a, b0, b0 + block, b0 - block, sbuf_b)
-        process(gbuf_b, sbuf_b, b0 + block, b0 + 2 * block, b0, sbuf_a)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-    # epilogue: the last block's slab is staged in sbuf_b
-    for l in range(L):
-        scatter_level(sbuf_b, tile - block, l)
-
-
-def _bwd_kernel_v4(meta: BrickMeta, tile: int, block: int, need_dx: bool,
-                   *refs):
-    """Round-5 backward: per-LEVEL dL/dtable accumulators + no gather.
-
-    The v3 backward's cost anatomy (ROOFLINE.md §2b): ~71 cyc/pt, of
-    which ~8.9 cyc per (pt,level) is the dtab RMW — every `dtab[r] +=
-    slab` is a load→add→store chain on ONE ref, and Mosaic must order
-    consecutive RMWs conservatively (dynamic row indices could alias),
-    so the chains serialize at roughly the load-use latency. Two
-    structural changes break that wall:
-
-      1. dL/dtable is L separate output refs (one per level). The
-         scatter loop runs point-outer / level-inner, so consecutive
-         RMWs target *provably disjoint* refs and their latency chains
-         interleave — the per-point cost drops from L·latency toward
-         max(issue, latency).
-      2. The table gather is GONE: the forward stores its lane-packed
-         corner values g [N,128] (`want_g`), and this kernel reads them
-         back with one aligned vector load per block. That removes the
-         8 scalar row-loads/pt the v3 backward re-issued (need_dx), and
-         removes the 16 MB table from the kernel's VMEM footprint.
-
-    Semantics are identical to `_bwd_kernel_v3` (bit-exact per-level
-    sums: the RMW order within each level's ref is unchanged — block
-    order, point order). rows_ref here carries LEVEL-LOCAL row indices
-    (offsets subtracted by the wrapper).
-
-    Ref layout: rows, lane, frac, gup, [g, m if need_dx],
-    then outputs [dtab_0..dtab_{L-1}, dx], then scratch [sbuf_a, sbuf_b].
-    """
-    from jax.experimental import pallas as pl
-
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    if need_dx:
-        rows_ref, lane_ref, frac_ref, gup_ref, g_ref, m_ref = refs[:6]
-        rest = refs[6:]
-    else:
-        rows_ref, lane_ref, frac_ref, gup_ref = refs[:4]
-        g_ref = m_ref = None
-        rest = refs[4:]
-    dtab_refs = rest[:L]
-    dx_ref = rest[L]
-    sbuf_a, sbuf_b = rest[L + 1:L + 3]
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        for dr in dtab_refs:
-            dr[:, :] = jnp.zeros_like(dr)
-
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> 4, L - 1)
-    q = lane_i & 15
-    kq = q >> 1
-    bits = ((kq >> 2) & 1, (kq >> 1) & 1, kq & 1)
-    sb = max(_STORE_BATCH, 1)
-    CH = block // L                      # points scattered per interleave step
-    INNER = min(64, CH)
-
-    def scatter_chunk(sbuf, base, c):
-        # scatter points [c·CH, (c+1)·CH) of the block at `base` — ALL
-        # levels, point-outer level-inner: consecutive RMWs hit L distinct
-        # refs, so their load→add→store chains overlap.
-        def body(i, _):
-            n0 = c * CH + i * INNER
-            for k in range(0, INNER, sb):
-                blks = [sbuf[pl.ds(l * block + n0 + k, sb), :]
-                        for l in range(L)]
-                for i2 in range(sb):
-                    for l in range(L):
-                        r = rows_ref[l, base + n0 + k + i2]
-                        dtab_refs[l][pl.ds(r, 1), :] = \
-                            dtab_refs[l][pl.ds(r, 1), :] + blks[l][i2:i2 + 1, :]
-            return 0
-
-        jax.lax.fori_loop(0, CH // INNER, body, 0)
-
-    def process(sbuf, base, prev_sbuf, prev_base):
-        """Build block `base`'s slabs (+dx) while scattering `prev_base`."""
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        gup_blk = gup_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        gup_pad = jnp.pad(gup_blk, ((0, 0), (0, LANES - gup_blk.shape[1])))
-        gb = jnp.take_along_axis(gup_pad, lvl * 2 + (lane_i & 1), axis=1)
-
-        s = []
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-        w = s[0] * s[1] * s[2]
-        contrib = gb * w
-        for l in range(L):
-            lane0_l = jnp.take_along_axis(
-                lane_pad, jnp.full((block, LANES), l, jnp.int32), axis=1)
-            d = lane_i - lane0_l
-            valid = (d >= 0) & (d <= 43) & ((d & 0b0010100) == 0)
-            dxb_ = (d >> 5) & 1
-            dyb_ = (d >> 3) & 1
-            dzb_ = (d >> 1) & 1
-            qinv = dxb_ * 8 + dyb_ * 4 + dzb_ * 2 + (d & 1)
-            src = jnp.clip(l * 16 + qinv, 0, LANES - 1)
-            sbuf[pl.ds(l * block, block), :] = jnp.where(
-                valid, jnp.take_along_axis(contrib, src, axis=1), 0.0)
-
-            @pl.when(prev_base >= 0)
-            def _(l=l):
-                scatter_chunk(prev_sbuf, prev_base, l)
-
-        if need_dx:
-            g = g_ref[pl.ds(base, block), :]
-            h = gb * g
-            tx = h * s[1] * s[2]
-            ty = h * s[0] * s[2]
-            tz = h * s[0] * s[1]
-            dx0 = jnp.dot(tx, m_ref[:, 0:1],
-                          preferred_element_type=jnp.float32,
-                          precision=_DOT_PRECISION)
-            dx1 = jnp.dot(ty, m_ref[:, 1:2],
-                          preferred_element_type=jnp.float32,
-                          precision=_DOT_PRECISION)
-            dx2 = jnp.dot(tz, m_ref[:, 2:3],
-                          preferred_element_type=jnp.float32,
-                          precision=_DOT_PRECISION)
-            dx_ref[pl.ds(base, block), :] = jnp.concatenate(
-                [dx0, dx1, dx2], axis=-1).astype(dx_ref.dtype)
-        else:
-            dx_ref[pl.ds(base, block), :] = jnp.zeros(
-                (block, 3), dx_ref.dtype)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(sbuf_a, b0, sbuf_b, b0 - block)
-        process(sbuf_b, b0 + block, sbuf_a, b0)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-    # epilogue: the last block's slabs are staged in sbuf_b
-    for c in range(L):
-        scatter_chunk(sbuf_b, tile - block, c)
-
-
-def _aux_patterns(meta: BrickMeta) -> np.ndarray:
-    """[8, 128] per-lane sign/scale patterns for the 2nd-order kernels.
-
-    rows 0-2: D̂_a(lane) = (2·bit_a−1)·(res_a−2)      (∂w/∂x_a sign·scale)
-    rows 3-5: pair patterns Â_{ab} = D̂_a·D̂_b / (s-scale) for (a,b) ∈
-              {(0,1),(0,2),(1,2)}                      (∂²w/∂x_a∂x_b)
-    Zero on lanes ≥ 16L (masks the garbage lanes everywhere they're used).
-    """
-    L = len(meta.levels)
-    m = np.zeros((8, LANES), np.float32)
-    pairs = ((0, 1), (0, 2), (1, 2))
-    for l, level in enumerate(meta.levels):
-        for q in range(16):
-            k = q >> 1
-            bits = ((k >> 2) & 1, (k >> 1) & 1, k & 1)
-            lane = l * 16 + q
-            d = [(2.0 * bits[a] - 1.0) * (level.res[a] - 2)
-                 for a in range(3)]
-            for a in range(3):
-                m[a, lane] = d[a]
-            for p, (a, b) in enumerate(pairs):
-                m[3 + p, lane] = d[a] * d[b]
-    return m
-
-
-def _lane_gb(meta, tile, gup_ref):
-    """Broadcast upstream dL/dy [tile,2L] to lanes: gb[n, lane] =
-    gup[n, (lane//16)·2 + (lane&1)]."""
-    L = meta.n_levels
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (tile, LANES), 1)
-    lvl = jnp.minimum(lane_i >> 4, L - 1)
-    gup_pad = jnp.pad(gup_ref[:], ((0, 0), (0, LANES - gup_ref.shape[1])))
-    return jnp.take_along_axis(gup_pad, lvl * 2 + (lane_i & 1), axis=1)
-
-
-def _dydx_kernel(meta: BrickMeta, tile: int,
-                 rows_ref, lane_ref, frac_ref, table_ref, m_ref, gup_ref,
-                 dx_ref, scratch_ref):
-    """Nablas-only kernel: dL/dx without the dL/dtable scatter — the
-    reference's `bwd_dydx` fast path (lotd.py:193 LoTDFunctionBwdDydx
-    forward). ~2.5× cheaper than the full backward when only nablas are
-    needed (render-time normals, NeuS upsampling, eikonal forward)."""
-    _gather_phase(meta, tile, rows_ref, table_ref, scratch_ref)
-    g, _, s = _packed_lanes(meta, tile, lane_ref, frac_ref, scratch_ref)
-    gb = _lane_gb(meta, tile, gup_ref)
-    h = gb * g
-    tx = h * s[1] * s[2]
-    ty = h * s[0] * s[2]
-    tz = h * s[0] * s[1]
-    dx0 = jnp.dot(tx, m_ref[:, 0:1], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-    dx1 = jnp.dot(ty, m_ref[:, 1:2], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-    dx2 = jnp.dot(tz, m_ref[:, 2:3], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-    dx_ref[:, :] = jnp.concatenate([dx0, dx1, dx2], -1).astype(dx_ref.dtype)
-
-
-def _dydx_kernel_v3(meta: BrickMeta, tile: int, block: int,
-                    rows_ref, lane_ref, frac_ref, rowsv_ref, table_ref,
-                    m_ref, gup_ref, dx_ref, buf_a, buf_b):
-    """Software-pipelined nablas kernel (same scheme as `_fwd_kernel_v3`):
-    block j+1's row gathers interleave with block j's dL/dx vector math.
-    MXU levels (`_mxu_levels`) fetch rows by one-hot matmul instead."""
-    from jax.experimental import pallas as pl
-
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    mxu = _mxu_levels(meta)
-
-    def gather_level(buf, base, l):
-        if l in mxu:
-            return
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> 4, L - 1)
-    q = lane_i & 15
-    kq = q >> 1
-    bits = ((kq >> 2) & 1, (kq >> 1) & 1, kq & 1)
-    off = (bits[0] * (BRICK_W * BRICK_W) + bits[1] * BRICK_W + bits[2]) \
-        * N_FEAT + (q & 1)
-
-    def process(buf, base, next_base):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        gup_blk = gup_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        gup_pad = jnp.pad(gup_blk, ((0, 0), (0, LANES - gup_blk.shape[1])))
-        gb = jnp.take_along_axis(gup_pad, lvl * 2 + (lane_i & 1), axis=1)
-
-        lane0 = jnp.take_along_axis(lane_pad, lvl, axis=1)
-        wanted = lane0 + off
-        other = buf_b if buf is buf_a else buf_a
-        g = jnp.zeros((block, LANES), buf.dtype)
-        for l in range(L):
-            @pl.when(next_base < tile)
-            def _(l=l):
-                gather_level(other, next_base, l)
-
-            if l in mxu:
-                rows_l = _mxu_rows(meta, table_ref, rowsv_ref, base,
-                                   block, l)
-            else:
-                rows_l = buf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-
-        s = []
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-        h = gb * g
-        tx = h * s[1] * s[2]
-        ty = h * s[0] * s[2]
-        tz = h * s[0] * s[1]
-        dx0 = jnp.dot(tx, m_ref[:, 0:1], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-        dx1 = jnp.dot(ty, m_ref[:, 1:2], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-        dx2 = jnp.dot(tz, m_ref[:, 2:3], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-        dx_ref[pl.ds(base, block), :] = jnp.concatenate(
-            [dx0, dx1, dx2], -1).astype(dx_ref.dtype)
-
-    for l in range(L):
-        gather_level(buf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(buf_a, b0, b0 + block)
-        process(buf_b, b0 + block, b0 + 2 * block)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-
-
-def _bwd2_kernel_v3(meta: BrickMeta, tile: int, block: int,
-                    rows_ref, lane_ref, frac_ref, rowsv_ref, rowsh_ref,
-                    table_ref, mred_ref, aux_ref, gup_ref, gg_ref,
-                    dgup_ref, dtab_ref, dx_ref, gbuf_a, gbuf_b,
-                    sbuf_a, sbuf_b):
-    """Software-pipelined 2nd-order backward (same scheme as
-    `_bwd_kernel_v3`): gather j+1 and scatter j−1 interleave with block j's
-    vector math; semantics identical to `_bwd2_kernel`. MXU levels
-    (`_mxu_levels`) gather by one-hot matmul and scatter by onehotᵀ@slab."""
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_ref[:, :] = jnp.zeros_like(dtab_ref)
-
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    mxu = _mxu_levels(meta)
-
-    def gather_level(buf, base, l):
-        if l in mxu:
-            return
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    def scatter_level(sbuf, base, l):
-        if l in mxu:
-            start, k_pad = _mxu_span(meta, l)
-            rid = rowsh_ref[l:l + 1, pl.ds(base, block)] - start  # [1,block]
-            iota0 = jax.lax.broadcasted_iota(jnp.int32, (k_pad, block), 0)
-            onehot_t = (iota0 == rid).astype(dtab_ref.dtype)
-            slab = sbuf[pl.ds(l * block, block), :]
-            dtab_ref[pl.ds(start, k_pad), :] = (
-                dtab_ref[pl.ds(start, k_pad), :]
-                + jnp.dot(onehot_t, slab,
-                          preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION
-                          ).astype(dtab_ref.dtype))
-            return
-        _scatter_rows(dtab_ref, sbuf, l * block,
-                      lambda j: rows_ref[l, base + j], block)
-
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> 4, L - 1)
-    q = lane_i & 15
-    kq = q >> 1
-    bits = ((kq >> 2) & 1, (kq >> 1) & 1, kq & 1)
-    off = (bits[0] * (BRICK_W * BRICK_W) + bits[1] * BRICK_W + bits[2]) \
-        * N_FEAT + (q & 1)
-    aux = aux_ref[:]                                          # [8,128]
-
-    def process(gbuf, sbuf, base, next_base, prev_base, prev_sbuf):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        gup_blk = gup_ref[pl.ds(base, block), :]
-        gg_blk = gg_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        gup_pad = jnp.pad(gup_blk, ((0, 0), (0, LANES - gup_blk.shape[1])))
-        gb = jnp.take_along_axis(gup_pad, lvl * 2 + (lane_i & 1), axis=1)
-
-        lane0 = jnp.take_along_axis(lane_pad, lvl, axis=1)
-        wanted = lane0 + off
-        other_gbuf = gbuf_b if gbuf is gbuf_a else gbuf_a
-        g = jnp.zeros((block, LANES), gbuf.dtype)
-        for l in range(L):
-            @pl.when(next_base < tile)
-            def _(l=l):
-                gather_level(other_gbuf, next_base, l)
-
-            @pl.when(prev_base >= 0)
-            def _(l=l):
-                scatter_level(prev_sbuf, prev_base, l)
-
-            if l in mxu:
-                rows_l = _mxu_rows(meta, table_ref, rowsv_ref, base,
-                                   block, l)
-            else:
-                rows_l = gbuf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-
-        s = []
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-
-        sp0 = s[1] * s[2]
-        sp1 = s[0] * s[2]
-        sp2 = s[0] * s[1]
-        d0 = aux[0:1, :] * sp0
-        d1 = aux[1:2, :] * sp1
-        d2 = aux[2:3, :] * sp2
-        gg0 = gg_blk[:, 0:1]
-        gg1 = gg_blk[:, 1:2]
-        gg2 = gg_blk[:, 2:3]
-        f_lane = gg0 * d0 + gg1 * d1 + gg2 * d2
-
-        dgup_ref[pl.ds(base, block), :] = jnp.dot(
-            g * f_lane, mred_ref[:], preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION
-        ).astype(dgup_ref.dtype)
-
-        h2 = gb * g
-        u0 = h2 * s[0]
-        u1 = h2 * s[1]
-        u2 = h2 * s[2]
-        ones_col = mred_ref[:, 0:1] * 0.0 + 1.0
-        z0 = gg1 * (u2 * aux[3:4, :]) + gg2 * (u1 * aux[4:5, :])
-        z1 = gg0 * (u2 * aux[3:4, :]) + gg2 * (u0 * aux[5:6, :])
-        z2 = gg0 * (u1 * aux[4:5, :]) + gg1 * (u0 * aux[5:6, :])
-        dxa = jnp.dot(z0, ones_col, preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-        dxb = jnp.dot(z1, ones_col, preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-        dxc = jnp.dot(z2, ones_col, preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-        dx_ref[pl.ds(base, block), :] = jnp.concatenate(
-            [dxa, dxb, dxc], -1).astype(dx_ref.dtype)
-
-        contrib = gb * f_lane
-        for l in range(L):
-            lane0_l = jnp.take_along_axis(
-                lane_pad, jnp.full((block, LANES), l, jnp.int32), axis=1)
-            d = lane_i - lane0_l
-            valid = (d >= 0) & (d <= 43) & ((d & 0b0010100) == 0)
-            dxb_ = (d >> 5) & 1
-            dyb_ = (d >> 3) & 1
-            dzb_ = (d >> 1) & 1
-            qinv = dxb_ * 8 + dyb_ * 4 + dzb_ * 2 + (d & 1)
-            src = jnp.clip(l * 16 + qinv, 0, LANES - 1)
-            sbuf[pl.ds(l * block, block), :] = jnp.where(
-                valid, jnp.take_along_axis(contrib, src, axis=1), 0.0)
-
-    for l in range(L):
-        gather_level(gbuf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(gbuf_a, sbuf_a, b0, b0 + block, b0 - block, sbuf_b)
-        process(gbuf_b, sbuf_b, b0 + block, b0 + 2 * block, b0, sbuf_a)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-    for l in range(L):
-        scatter_level(sbuf_b, tile - block, l)
-
-
-def _bwd2_kernel(meta: BrickMeta, tile: int,
-                 rows_ref, lane_ref, frac_ref, table_ref, mred_ref, aux_ref,
-                 gup_ref, gg_ref,
-                 dgup_ref, dtab_ref, dx_ref, scratch_ref):
-    """Backward OF the nablas op (2nd-order LoTD — reference
-    kernel_lod_backward_input_backward_grid, lotd_encoding.h:765).
-
-    Primal: nab_a(x) = Σ_lane gb·g·D̂_a·s_b·s_c with D̂_a = (2bit_a−1)(res_a−2).
-    Given the cotangent gg [tile,3] of nab, emits:
-      dgup  = d nab·gg / d(dL/dy)  [tile,2L]   (… → decoder-grad path)
-      dtab  = d nab·gg / d table   [rows,128]  (scatter-accumulated)
-      dx    = d nab·gg / d x       [tile,3]    (∂²w cross terms; trilinear
-                                                has zero ∂²/∂x_a² in-cell)
-    aux_ref: [8,128] _aux_patterns (D̂ rows 0-2, pair products rows 3-5,
-    zeroed on garbage lanes — they mask everything downstream).
-    """
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_ref[:, :] = jnp.zeros_like(dtab_ref)
-
-    L = meta.n_levels
-    _gather_phase(meta, tile, rows_ref, table_ref, scratch_ref)
-    g, _, s = _packed_lanes(meta, tile, lane_ref, frac_ref, scratch_ref)
-    gb = _lane_gb(meta, tile, gup_ref)
-
-    sp0 = s[1] * s[2]
-    sp1 = s[0] * s[2]
-    sp2 = s[0] * s[1]
-    aux = aux_ref[:]                                          # [8,128]
-    d0 = aux[0:1, :] * sp0                                    # [tile,128]
-    d1 = aux[1:2, :] * sp1
-    d2 = aux[2:3, :] * sp2
-    gg0 = gg_ref[:, 0:1]
-    gg1 = gg_ref[:, 1:2]
-    gg2 = gg_ref[:, 2:3]
-    f_lane = gg0 * d0 + gg1 * d1 + gg2 * d2                   # Σ_a gg_a·D_a
-
-    # ---- dgup: Σ_{lanes of col} g·F  (one MXU reduce)
-    dgup_ref[:, :] = jnp.dot(g * f_lane, mred_ref[:],
-                             preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION
-                             ).astype(dgup_ref.dtype)
-
-    # ---- dx: cross-derivative pairs; u_c = gb·g·s_c
-    h2 = gb * g
-    u0 = h2 * s[0]
-    u1 = h2 * s[1]
-    u2 = h2 * s[2]
-    ones_col = mred_ref[:, 0:1] * 0.0 + 1.0                   # [128,1]
-    z0 = gg1 * (u2 * aux[3:4, :]) + gg2 * (u1 * aux[4:5, :])
-    z1 = gg0 * (u2 * aux[3:4, :]) + gg2 * (u0 * aux[5:6, :])
-    z2 = gg0 * (u1 * aux[4:5, :]) + gg1 * (u0 * aux[5:6, :])
-    dxa = jnp.dot(z0, ones_col, preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-    dxb = jnp.dot(z1, ones_col, preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-    dxc = jnp.dot(z2, ones_col, preferred_element_type=jnp.float32,
-                   precision=_DOT_PRECISION)
-    dx_ref[:, :] = jnp.concatenate([dxa, dxb, dxc], -1).astype(dx_ref.dtype)
-
-    # ---- dtab: contribution per gathered lane = gb·F; same inverse lane
-    # map + scatter-add as the 1st-order backward
-    contrib = gb * f_lane
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (tile, LANES), 1)
-    for l in range(L):
-        lane_pad = jnp.pad(lane_ref[:],
-                           ((0, 0), (0, LANES - lane_ref.shape[1])))
-        lane0 = jnp.take_along_axis(lane_pad,
-                                    jnp.full((tile, LANES), l, jnp.int32),
-                                    axis=1)
-        d = lane_i - lane0
-        valid = (d >= 0) & (d <= 43) & ((d & 0b0010100) == 0)
-        dxb_ = (d >> 5) & 1
-        dyb_ = (d >> 3) & 1
-        dzb_ = (d >> 1) & 1
-        qinv = dxb_ * 8 + dyb_ * 4 + dzb_ * 2 + (d & 1)
-        src = jnp.clip(l * 16 + qinv, 0, LANES - 1)
-        slab = jnp.where(valid, jnp.take_along_axis(contrib, src, axis=1),
-                         0.0)
-        scratch_ref[pl.ds(l * tile, tile), :] = slab
-
-    INNER = 64
-
-    def scatter_body(i, _):
-        base = i * INNER
-        for kk in range(INNER):
-            n = base + kk
-            for l in range(L):
-                r = rows_ref[l, n]
-                dtab_ref[pl.ds(r, 1), :] = dtab_ref[pl.ds(r, 1), :] + \
-                    scratch_ref[pl.ds(l * tile + n, 1), :]
-        return 0
-
-    jax.lax.fori_loop(0, tile // INNER, scatter_body, 0)
-
-
-_DOT_PRECISION = jax.lax.Precision.HIGHEST
-# f32-exact kernel matmuls by default (Mosaic DEFAULT = bf16, ~4e-3 rel
-# on gathered values/products). `set_fast_math(True)` opts into the
-# bf16+MXU regime (~+10%% fwd throughput) — comparable to the reference's
-# fp16-param kernels; see docs/DESIGN.md round-4 numerics.
-
-
-def set_fast_math(enable: bool = True):
-    """Toggle bf16 kernel matmuls + the one-hot MXU gather (fast) vs
-    f32-exact HIGHEST dots (default). Applies to brick, brick4, and
-    permuto-cell kernels at their next trace."""
-    global _DOT_PRECISION, _MXU_DENSE
-    _DOT_PRECISION = (jax.lax.Precision.DEFAULT if enable
-                      else jax.lax.Precision.HIGHEST)
-    _MXU_DENSE = bool(enable)
-    from nr3d_lib_tpu.ops import permuto_cell as _pc
-    _pc._MXU_DENSE = bool(enable)
-
-
-_MAX_CHUNK = 1 << 19  # Mosaic crashes on very large per-call shapes
-_BWD_VERSION = 4      # 4 = per-level accumulators + gather-free (reads the
-                      # forward's saved g); 3 = software-pipelined RMW on
-                      # one dtab ref (kept for batched/forest rows and as
-                      # the fallback when _v4_ok() fails)
-_FWD_VERSION = 3      # 3 = software-pipelined fwd kernel; 2 = phase-serial
-_MXU_DENSE = False    # fetch small levels via one-hot MXU matmul.
-                      # OFF by default since round 4: kernel dots now run
-                      # at Precision.HIGHEST (f32-exact — Mosaic's DEFAULT
-                      # is bf16, which rounded gathered VALUES to ~4e-3
-                      # rel), and the 6-pass one-hot matmul at HIGHEST
-                      # costs more than the scalar gathers it replaces
-                      # (fwd 0.0465 vs 0.0642 GS/s measured). Set True
-                      # only with bf16-tolerant workloads.
-_MXU_MAX_ROWS = 2048  # row cap for the MXU gather (VPU one-hot cost grows
-                      # with rows; past ~2k it exceeds the scalar time saved)
-_FWD_BLOCK = 1024     # points per pipeline stage in the v3 kernel
-                      # (A/B at 3.6M pts: 1024 -> 15.0 cyc/pt vs v2's
-                      # 23.5; smaller blocks pipeline worse)
-_STORE_BATCH = 8      # gather-loop store batching: pack this many loaded
-                      # rows into one (k,128) aligned scratch store (the
-                      # loads stay per-row; packing is VPU sublane work)
-                      # and the backward's staging reads likewise. HW A/B
-                      # (3.6M pts, 8 levels, fwd): sb=1 14.78 cyc/pt,
-                      # sb=4 14.82 (wash), sb=8 13.39 (0.0702 GS/s, +10%).
-
-
-def _offset_rows(rows: Array, bidx, meta: BrickMeta, n_pad: int) -> Array:
-    """Per-block row offsets for the forest/batched encode: block b's table
-    occupies rows [b·total_rows, (b+1)·total_rows). bidx < 0 clamps to
-    block 0 (callers mask those points' features/grads to zero)."""
-    if bidx is None:
-        return rows
-    b = jnp.maximum(bidx, 0).astype(jnp.int32)
-    b = jnp.pad(b, (0, n_pad - b.shape[0]))
-    return rows + b[None, :] * meta.total_rows
-
-
-def _pad_points(x: Array, tile: int) -> Tuple[Array, int]:
-    n = x.shape[0]
-    n_pad = ((n + tile - 1) // tile) * tile
-    if n_pad != n:
-        x = jnp.pad(x, ((0, n_pad - n), (0, 0)))
-    return x, n
-
-
-def _brick_encode_pallas(x: Array, table: Array, meta: BrickMeta,
-                         tile: int = 2048, interpret: bool = False,
-                         coherent: bool = False, bidx=None) -> Array:
-    n = x.shape[0]
-    if n > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import loop_chunks
-
-        per_point = (x,) if bidx is None else (x, bidx)
-
-        def body(xc, *rest):
-            out = _brick_encode_pallas_impl(
-                xc, table, meta, tile, interpret, coherent,
-                rest[0] if rest else None)
-            return (out,), ()
-
-        (out,), _ = loop_chunks(body, per_point, n, _MAX_CHUNK)
-        return out
-    return _brick_encode_pallas_impl(x, table, meta, tile, interpret,
-                                     coherent, bidx)
-
-
-def _brick_encode_pallas_impl(x: Array, table: Array, meta: BrickMeta,
-                              tile: int = 2048, interpret: bool = False,
-                              coherent: bool = False, bidx=None) -> Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, table.dtype, tile)
-    rows = _offset_rows(rows, bidx, meta, n_pad)
-    m_red = jnp.asarray(_reduce_matrix(L), table.dtype)
-
-    block = _FWD_BLOCK
-    if _FWD_VERSION == 3 and tile % (2 * block) == 0:
-        kernel = functools.partial(_fwd_kernel_v3, meta, tile, block, False)
-        scratch = [pltpu.VMEM((L * block, LANES), table.dtype),
-                   pltpu.VMEM((L * block, LANES), table.dtype)]
-        out = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((L, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, L), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-                pl.BlockSpec((tile, L), lambda i: (i, 0)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((n_pad, 2 * L), table.dtype),
-            scratch_shapes=scratch,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(rows, lane_c, frac_c, rows.T, table, m_red)
-        return out[:n]
-    kernel = functools.partial(_fwd_kernel_v2, meta, tile)
-    scratch = [pltpu.VMEM((L * tile, LANES), table.dtype)]
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i), memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_pad, 2 * L), table.dtype),
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, table, m_red)
-    return out[:n]
-
-
-def _brick_bwd_pallas(x: Array, table: Array, g_up: Array, meta: BrickMeta,
-                      tile: int = 2048, interpret: bool = False,
-                      coherent: bool = False, need_dx: bool = True,
-                      bidx=None) -> Tuple[Array, Array]:
-    """Pallas backward: (dL/dx [N,3], dL/dtable [rows,128])."""
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        per_point = (x, g_up) if bidx is None else (x, g_up, bidx)
-
-        def body(xc, gc, *rest):
-            dx_i, dt_i = _brick_bwd_pallas_impl(
-                xc, table, gc, meta, tile, interpret, coherent, need_dx,
-                rest[0] if rest else None)
-            return (dx_i,), (dt_i,)
-
-        (dx,), (dtab,) = scan_chunks(body, per_point, n0, _MAX_CHUNK,
-                                     sum_init=(jnp.zeros_like(table),))
-        return dx, dtab
-    return _brick_bwd_pallas_impl(x, table, g_up, meta, tile, interpret,
-                                  coherent, need_dx, bidx)
-
-
-def _brick_bwd_pallas_impl(x: Array, table: Array, g_up: Array,
-                           meta: BrickMeta, tile: int = 2048,
-                           interpret: bool = False,
-                           coherent: bool = False,
-                           need_dx: bool = True, bidx=None
-                           ) -> Tuple[Array, Array]:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, table.dtype, tile)
-    rows = _offset_rows(rows, bidx, meta, n_pad)
-    m_dx = jnp.asarray(_dx_matrix(meta), table.dtype)
-
-    block = _FWD_BLOCK
-    if _FWD_VERSION == 3 and tile % (2 * block) == 0:
-        kernel = functools.partial(_bwd_kernel_v3, meta, tile, block,
-                                   need_dx)
-        scratch = [pltpu.VMEM((L * block, LANES), table.dtype)
-                   for _ in range(4)]
-        dtab, dx = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((L, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, L), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-                pl.BlockSpec((tile, L), lambda i: (i, 0)),
-                pl.BlockSpec((L, tile), lambda i: (0, i)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-            ],
-            out_specs=(
-                pl.BlockSpec(table.shape, lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct(table.shape, table.dtype),
-                jax.ShapeDtypeStruct((n_pad, 3), table.dtype),
-            ),
-            scratch_shapes=scratch,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(rows, lane_c, frac_c, rows.T, rows, table, m_dx, g_up)
-        return dx[:n], dtab
-    kernel = functools.partial(_bwd_kernel_v2, meta, tile, need_dx)
-    scratch = [pltpu.VMEM((L * tile, LANES), table.dtype)]
-    dtab, dx = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i), memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec(table.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct(table.shape, table.dtype),
-            jax.ShapeDtypeStruct((n_pad, 3), table.dtype),
-        ),
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, table, m_dx, g_up)
-    # x is in [0,1] but frac derivative is per-unit-x already folded (res−2)
-    return dx[:n], dtab
-
-
-def _pad8(n: int) -> int:
-    return -(-n // 8) * 8
-
-
-def _v4_ok(meta: BrickMeta, tile: int = 2048) -> bool:
-    """v4 backward eligibility: the interleaved scatter needs the block to
-    split evenly into L chunks of store-batch-aligned length (fallback v3
-    otherwise — correctness is never gated on v4)."""
-    if _BWD_VERSION != 4 or _FWD_VERSION != 3:
-        return False
-    block = _FWD_BLOCK
-    L = meta.n_levels
-    if tile % (2 * block) != 0 or block % L != 0:
-        return False
-    ch = block // L
-    inner = min(64, ch)
-    sb = max(_STORE_BATCH, 1)
-    return ch % inner == 0 and inner % sb == 0
-
-
-def _brick_encode_pallas_g(x: Array, table: Array, meta: BrickMeta,
-                           tile: int = 2048, interpret: bool = False
-                           ) -> Tuple[Array, Array]:
-    """Forward + lane-packed corner values g [N,128] (v4-backward residual)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import loop_chunks
-
-        def body(xc):
-            return _brick_encode_pallas_g(xc, table, meta, tile,
-                                          interpret), ()
-
-        (out, gpk), _ = loop_chunks(body, (x,), n0, _MAX_CHUNK)
-        return out, gpk
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, table.dtype, tile)
-    m_red = jnp.asarray(_reduce_matrix(L), table.dtype)
-    block = _FWD_BLOCK
-    kernel = functools.partial(_fwd_kernel_v3, meta, tile, block, True)
-    scratch = [pltpu.VMEM((L * block, LANES), table.dtype),
-               pltpu.VMEM((L * block, LANES), table.dtype)]
-    out, gpk = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((n_pad, 2 * L), table.dtype),
-            jax.ShapeDtypeStruct((n_pad, LANES), table.dtype),
-        ),
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, rows.T, table, m_red)
-    return out[:n], gpk[:n]
-
-
-def _brick_bwd_pallas_v4(x: Array, g_packed, g_up: Array,
-                         meta: BrickMeta, dtype,
-                         tile: int = 2048, interpret: bool = False,
-                         need_dx: bool = True) -> Tuple[Array, Array]:
-    """v4 Pallas backward (per-level accumulators, gather-free).
-
-    g_packed: [N,128] corner values from `_brick_encode_pallas_g`
-    (None when need_dx=False — the frozen-x path needs only weights).
-    Returns (dL/dx [N,3], dL/dtable [total_rows,128])."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        per_point = (x, g_up) if g_packed is None else (x, g_up, g_packed)
-
-        def body(xc, gc, *rest):
-            dx_i, dt_i = _brick_bwd_pallas_v4(
-                xc, rest[0] if rest else None, gc, meta, dtype, tile,
-                interpret, need_dx)
-            return (dx_i,), (dt_i,)
-
-        (dx,), (dtab,) = scan_chunks(
-            body, per_point, n0, _MAX_CHUNK,
-            sum_init=(jnp.zeros((meta.total_rows, LANES), dtype),))
-        return dx, dtab
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    if g_packed is not None and g_packed.shape[0] != n_pad:
-        g_packed = jnp.pad(g_packed,
-                           ((0, n_pad - g_packed.shape[0]), (0, 0)))
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, dtype, tile)
-    # level-LOCAL row indices for the per-level accumulators
-    offs = jnp.asarray([lev.row_offset for lev in meta.levels],
-                       jnp.int32)[:, None]
-    rows = rows - offs
-    block = _FWD_BLOCK
-    kernel = functools.partial(_bwd_kernel_v4, meta, tile, block, need_dx)
-    scratch = [pltpu.VMEM((L * block, LANES), dtype) for _ in range(2)]
-    in_specs = [
-        pl.BlockSpec((L, tile), lambda i: (0, i), memory_space=pltpu.SMEM),
-        pl.BlockSpec((tile, L), lambda i: (i, 0)),
-        pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-        pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-    ]
-    operands = [rows, lane_c, frac_c, g_up]
-    if need_dx:
-        in_specs += [pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                     pl.BlockSpec(memory_space=pltpu.VMEM)]
-        operands += [g_packed, jnp.asarray(_dx_matrix(meta), dtype)]
-    out_specs = tuple(
-        pl.BlockSpec((_pad8(lev.n_rows), LANES), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM)
-        for lev in meta.levels) + (
-        pl.BlockSpec((tile, 3), lambda i: (i, 0)),)
-    out_shape = tuple(
-        jax.ShapeDtypeStruct((_pad8(lev.n_rows), LANES), dtype)
-        for lev in meta.levels) + (
-        jax.ShapeDtypeStruct((n_pad, 3), dtype),)
-    outs = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(*operands)
-    dtab = jnp.concatenate(
-        [d[:lev.n_rows] for d, lev in zip(outs[:L], meta.levels)], axis=0)
-    return outs[L][:n], dtab
-
-
-# ------------------------------------------------------------------ custom vjp
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
-def brick_encode(x: Array, table: Array, meta: BrickMeta,
-                 use_pallas: bool = True, coherent: bool = False) -> Array:
-    """Brick LoTD encode: [N,3] in [0,1] × [total_rows,128] → [N, 2L].
-
-    Forward AND first-order backward run the fused Pallas kernels on TPU
-    (VERDICT round-1 #1d); off-TPU (and for higher-order autodiff — see
-    `brick_encode_ho`) the XLA reference formulation is used.
-
-    `coherent` is accepted for API stability but IGNORED: two
-    coherence-exploiting gather variants (cond-per-group, phase-partitioned
-    dynamic loops) both measured slower than the unrolled uniform loop —
-    see `_gather_phase` and docs/DESIGN.md §3."""
-    if use_pallas and jax.default_backend() == "tpu":
-        return _brick_encode_pallas(x, table, meta, coherent=coherent)
-    return brick_encode_xla(x, table, meta)
-
-
-def _fwd(x, table, meta, use_pallas, coherent):
-    if use_pallas and jax.default_backend() == "tpu" and _v4_ok(meta):
-        # v4 training path: the forward also emits the lane-packed corner
-        # values g, so the backward never re-issues the table gathers
-        out, gpk = _brick_encode_pallas_g(x, table, meta)
-        return out, (x, table, gpk)
-    return brick_encode(x, table, meta, use_pallas, coherent), (x, table)
-
-
-def _bwd(meta, use_pallas, coherent, res, g):
-    if len(res) == 3:
-        x, table, gpk = res
-        return _brick_bwd_pallas_v4(x, gpk, g, meta, table.dtype)
-    x, table = res
-    if use_pallas and jax.default_backend() == "tpu":
-        return _brick_bwd_pallas(x, table, g, meta, coherent=coherent)
-    _, vjp_fn = jax.vjp(lambda xx, tt: brick_encode_xla(xx, tt, meta), x, table)
-    return vjp_fn(g)
-
-
-brick_encode.defvjp(_fwd, _bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def brick_encode_frozen_x(x: Array, table: Array, meta: BrickMeta) -> Array:
-    """`brick_encode` for paths where positions carry NO gradient (plain
-    radiance-field training): the backward skips the table gather + corner
-    extraction entirely (~1.2× faster train step). x is treated as a
-    constant — equivalent to brick_encode(stop_gradient(x), ...)."""
-    x = jax.lax.stop_gradient(x)
-    if jax.default_backend() == "tpu":
-        return _brick_encode_pallas(x, table, meta)
-    return brick_encode_xla(x, table, meta)
-
-
-def _fwd_frozen(x, table, meta):
-    return brick_encode_frozen_x(x, table, meta), (x, table)
-
-
-def _bwd_frozen(meta, res, g):
-    x, table = res
-    if jax.default_backend() == "tpu":
-        if _v4_ok(meta):
-            _, dtab = _brick_bwd_pallas_v4(x, None, g, meta, table.dtype,
-                                           need_dx=False)
-        else:
-            _, dtab = _brick_bwd_pallas(x, table, g, meta, need_dx=False)
-        return jnp.zeros_like(x), dtab
-    _, vjp_fn = jax.vjp(lambda tt: brick_encode_xla(x, tt, meta), table)
-    return jnp.zeros_like(x), vjp_fn(g)[0]
-
-
-brick_encode_frozen_x.defvjp(_fwd_frozen, _bwd_frozen)
-
-
-def _brick_dydx_pallas(g_up: Array, x: Array, table: Array, meta: BrickMeta,
-                       tile: int = 2048, interpret: bool = False,
-                       bidx=None) -> Array:
-    """dL/dx only (no dtable scatter) via the dedicated Pallas kernel."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        per_point = (x, g_up) if bidx is None else (x, g_up, bidx)
-
-        def body(xc, gc, *rest):
-            dx_i = _brick_dydx_pallas(gc, xc, table, meta, tile, interpret,
-                                      rest[0] if rest else None)
-            return (dx_i,), ()
-
-        (dx,), _ = scan_chunks(body, per_point, n0, _MAX_CHUNK)
-        return dx
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, table.dtype, tile)
-    rows = _offset_rows(rows, bidx, meta, n_pad)
-    m_dx = jnp.asarray(_dx_matrix(meta), table.dtype)
-    block = _FWD_BLOCK
-    if _FWD_VERSION == 3 and tile % (2 * block) == 0:
-        kernel = functools.partial(_dydx_kernel_v3, meta, tile, block)
-        scratch = [pltpu.VMEM((L * block, LANES), table.dtype)
-                   for _ in range(2)]
-        dx = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((L, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, L), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-                pl.BlockSpec((tile, L), lambda i: (i, 0)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-            ],
-            out_specs=pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((n_pad, 3), table.dtype),
-            scratch_shapes=scratch,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(rows, lane_c, frac_c, rows.T, table, m_dx, g_up)
-        return dx[:n]
-    kernel = functools.partial(_dydx_kernel, meta, tile)
-    scratch = [pltpu.VMEM((L * tile, LANES), table.dtype)]
-    dx = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i), memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_pad, 3), table.dtype),
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, table, m_dx, g_up)
-    return dx[:n]
-
-
-def _brick_bwd2_pallas(g_up: Array, x: Array, table: Array, gg: Array,
-                       meta: BrickMeta, tile: int = 2048,
-                       interpret: bool = False, bidx=None
-                       ) -> Tuple[Array, Array, Array]:
-    """2nd-order backward: cotangents (d_gup [N,2L], d_x [N,3],
-    d_table [rows,128]) of the nablas op given gg = cot(dL/dx)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        per_point = ((x, g_up, gg) if bidx is None
-                     else (x, g_up, gg, bidx))
-
-        def body(xc, gc, ggc, *rest):
-            a, b, c = _brick_bwd2_pallas(gc, xc, table, ggc, meta, tile,
-                                         interpret,
-                                         rest[0] if rest else None)
-            return (a, b), (c,)
-
-        (dgup, dx), (dtab,) = scan_chunks(
-            body, per_point, n0, _MAX_CHUNK,
-            sum_init=(jnp.zeros_like(table),))
-        return dgup, dx, dtab
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    if gg.shape[0] != n_pad:
-        gg = jnp.pad(gg, ((0, n_pad - gg.shape[0]), (0, 0)))
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, table.dtype, tile)
-    rows = _offset_rows(rows, bidx, meta, n_pad)
-    m_red = jnp.asarray(_reduce_matrix(L), table.dtype)
-    aux = jnp.asarray(_aux_patterns(meta), table.dtype)
-    block = _FWD_BLOCK
-    if _FWD_VERSION == 3 and tile % (2 * block) == 0:
-        kernel = functools.partial(_bwd2_kernel_v3, meta, tile, block)
-        scratch = [pltpu.VMEM((L * block, LANES), table.dtype)
-                   for _ in range(4)]
-        dgup, dtab, dx = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((L, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, L), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-                pl.BlockSpec((tile, L), lambda i: (i, 0)),
-                pl.BlockSpec((L, tile), lambda i: (0, i)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-            ],
-            out_specs=(
-                pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-                pl.BlockSpec(table.shape, lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct((n_pad, 2 * L), table.dtype),
-                jax.ShapeDtypeStruct(table.shape, table.dtype),
-                jax.ShapeDtypeStruct((n_pad, 3), table.dtype),
-            ),
-            scratch_shapes=scratch,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(rows, lane_c, frac_c, rows.T, rows, table, m_red, aux, g_up, gg)
-        return dgup[:n], dx[:n], dtab
-    kernel = functools.partial(_bwd2_kernel, meta, tile)
-    scratch = [pltpu.VMEM((L * tile, LANES), table.dtype)]
-    dgup, dtab, dx = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i), memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((tile, 2 * L), lambda i: (i, 0)),
-            pl.BlockSpec(table.shape, lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((n_pad, 2 * L), table.dtype),
-            jax.ShapeDtypeStruct(table.shape, table.dtype),
-            jax.ShapeDtypeStruct((n_pad, 3), table.dtype),
-        ),
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, table, m_red, aux, g_up, gg)
-    return dgup[:n], dx[:n], dtab
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def brick_nablas(g_up: Array, x: Array, table: Array,
-                 meta: BrickMeta) -> Array:
-    """Differentiable nablas: dL/dx of the encode given upstream dL/dy —
-    the reference's LoTDFunctionBwdDydx ("backward as forward", lotd.py:193)
-    whose OWN backward is the 2nd-order kernel (lotd_encoding.h:765). Use
-    for eikonal training: grads flow to (g_up → decoder, x, table) through
-    the Pallas pair on TPU, the XLA formulation elsewhere."""
-    if jax.default_backend() == "tpu":
-        return _brick_dydx_pallas(g_up, x, table, meta)
-    _, vjp_fn = jax.vjp(lambda xx: brick_encode_xla(xx, table, meta), x)
-    return vjp_fn(g_up)[0]
-
-
-def _nablas_fwd(g_up, x, table, meta):
-    return brick_nablas(g_up, x, table, meta), (g_up, x, table)
-
-
-def _nablas_bwd(meta, res, gg):
-    g_up, x, table = res
-    if jax.default_backend() == "tpu":
-        d_gup, d_x, d_tab = _brick_bwd2_pallas(g_up, x, table, gg, meta)
-        return d_gup, d_x, d_tab
-    # XLA reference formulation of the same three cotangents
-    def nab(gu, xx, tt):
-        _, vjp_fn = jax.vjp(lambda x_: brick_encode_xla(x_, tt, meta), xx)
-        return vjp_fn(gu)[0]
-
-    _, vjp2 = jax.vjp(nab, g_up, x, table)
-    return vjp2(gg)
-
-
-brick_nablas.defvjp(_nablas_fwd, _nablas_bwd)
-
-
-def brick_encode_ho(x: Array, table: Array, meta: BrickMeta) -> Array:
-    """Higher-order-differentiable encode (pure XLA formulation): use on
-    eikonal/nablas paths that differentiate through the backward (the
-    reference's 2nd-order kernels, lotd_encoding.h:765 — here plain
-    autodiff; the Pallas pair covers 1st order only)."""
-    return brick_encode_xla(x, table, meta)
-
-
-def brick_bwd_dydx(g_up: Array, x: Array, table: Array,
-                   meta: BrickMeta) -> Array:
-    """dL/dx only — the reference's `bwd_dydx` nablas fast path
-    (lotd.py:193 LoTDFunctionBwdDydx forward). Not differentiable; for
-    nablas that require further grads use `brick_encode_ho` + jax.grad."""
-    if jax.default_backend() == "tpu":
-        dx, _ = _brick_bwd_pallas(x, table, g_up, meta)
-        return dx
-    _, vjp_fn = jax.vjp(lambda xx: brick_encode_xla(xx, table, meta), x)
-    return vjp_fn(g_up)[0]
-
-
-# ----------------------------------------------------------- forest/batched
-def make_forest_meta(meta: BrickMeta) -> BrickMeta:
-    """Meta for per-block tables: same levels, MXU gather disabled (rows
-    carry per-block offsets, so the static level spans don't hold)."""
-    import dataclasses
-
-    return dataclasses.replace(meta, mxu=False)
-
-
-def brick_encode_xla_batched(x: Array, table: Array, meta: BrickMeta,
-                             bidx: Array) -> Array:
-    """XLA reference for the per-block encode: table [B·total_rows, 128],
-    block b owns rows [b·total_rows, (b+1)·total_rows). bidx < 0 clamps to
-    block 0 — callers mask those points."""
-    b = jnp.maximum(bidx, 0).astype(jnp.int32)
-    outs = []
-    for level in meta.levels:
-        row, lane0, frac = _level_rows_and_lanes(x, level)
-        row = row + b * meta.total_rows
-        rows = jnp.take(table, row, axis=0, mode="clip")
-        lanes = lane0[:, None] + jnp.asarray(_CORNER_OFF)[None, :]
-        f0 = jnp.take_along_axis(rows, lanes, axis=1)
-        f1 = jnp.take_along_axis(rows, lanes + 1, axis=1)
-        w = _corner_weights(frac).astype(rows.dtype)
-        outs.append(jnp.sum(w * f0, -1))
-        outs.append(jnp.sum(w * f1, -1))
-    return jnp.stack(outs, axis=-1)
-
-
-# per-block tables must be VMEM-resident for the kernels (the full table is
-# an input AND the backward's accumulator output)
-_FOREST_VMEM_ROWS = 48 * 1024
-
-
-def _forest_use_kernel(table: Array) -> bool:
-    return (jax.default_backend() == "tpu"
-            and table.shape[0] <= _FOREST_VMEM_ROWS)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def brick_encode_batched(x: Array, table: Array, meta: BrickMeta,
-                         bidx: Array) -> Array:
-    """Per-block brick encode (forest / batched-categorical scenes): ONE
-    row-gather per (point, level) regardless of block count — the same
-    kernels as `brick_encode`, rows offset by bidx·total_rows in the
-    prologue (reference capability: csrc/lotd/lotd_forest.h +
-    lotd_batched; this is the TPU fast path for both). Falls back to the
-    XLA formulation off-TPU or when the forest table exceeds the VMEM
-    budget. meta should come from `make_forest_meta`."""
-    if _forest_use_kernel(table):
-        return _brick_encode_pallas(x, table, meta, bidx=bidx)
-    return brick_encode_xla_batched(x, table, meta, bidx)
-
-
-def _fwd_batched(x, table, meta, bidx):
-    return brick_encode_batched(x, table, meta, bidx), (x, table, bidx)
-
-
-def _bwd_batched(meta, res, g):
-    x, table, bidx = res
-    zero_b = np.zeros(bidx.shape, jax.dtypes.float0)
-    if _forest_use_kernel(table):
-        dx, dtab = _brick_bwd_pallas(x, table, g, meta, bidx=bidx)
-        return dx, dtab, zero_b
-    _, vjp_fn = jax.vjp(
-        lambda xx, tt: brick_encode_xla_batched(xx, tt, meta, bidx),
-        x, table)
-    dx, dtab = vjp_fn(g)
-    return dx, dtab, zero_b
-
-
-brick_encode_batched.defvjp(_fwd_batched, _bwd_batched)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def brick_nablas_batched(g_up: Array, x: Array, table: Array,
-                         meta: BrickMeta, bidx: Array) -> Array:
-    """Per-block nablas with the 2nd-order Pallas backward (eikonal
-    training on forest scenes runs the fast path end to end)."""
-    if _forest_use_kernel(table):
-        return _brick_dydx_pallas(g_up, x, table, meta, bidx=bidx)
-    _, vjp_fn = jax.vjp(
-        lambda xx: brick_encode_xla_batched(xx, table, meta, bidx), x)
-    return vjp_fn(g_up)[0]
-
-
-def _nab_b_fwd(g_up, x, table, meta, bidx):
-    return brick_nablas_batched(g_up, x, table, meta, bidx), \
-        (g_up, x, table, bidx)
-
-
-def _nab_b_bwd(meta, res, gg):
-    g_up, x, table, bidx = res
-    zero_b = np.zeros(bidx.shape, jax.dtypes.float0)
-    if _forest_use_kernel(table):
-        dgup, dx, dtab = _brick_bwd2_pallas(g_up, x, table, gg, meta,
-                                            bidx=bidx)
-        return dgup, dx, dtab, zero_b
-
-    def nab_fn(gu, xx, tt):
-        _, vjp_fn = jax.vjp(
-            lambda x_: brick_encode_xla_batched(x_, tt, meta, bidx), xx)
-        return vjp_fn(gu)[0]
-
-    _, vjp2 = jax.vjp(nab_fn, g_up, x, table)
-    return vjp2(gg) + (zero_b,)
-
-
-brick_nablas_batched.defvjp(_nab_b_fwd, _nab_b_bwd)

@@ -1,62 +1,38 @@
-"""bf16-packed brick LoTD encoding — 4 feats/vertex at one gather.
+"""Brick LoTD encoding with 4 bf16-quantized feats/vertex.
 
-The F=2 brick path (`ops/lotd_brick.py`) is scalar-gather-issue bound at
-~1.8 cyc per (point, level): the row fetch, not the math, is the wall
-(docs/DESIGN.md §3). This variant doubles the features carried per fetch:
-each 128-lane f32 row bit-packs TWO bf16 features per lane (4
-feats/vertex × 64 vertices), so an encoding with the same total feature
-count needs HALF the levels — and half the scalar issues per point.
+Same brick geometry as `ops/lotd_brick.py` (4³ vertices / 3³ cells / same
+hashing); each brick row carries 4 features per vertex, so an encoding
+with the same total feature count needs half the levels.
 
 Layouts
-  * unpacked (user/param space): f32 [rows, 256], lane u = vertex·4 + f.
+  * unpacked (param space): f32 [rows, 256], lane u = vertex·4 + f.
     Parameters live and receive gradients here; values are quantized to
-    bf16 by the packed path (the quantization IS the design — NGP-class
-    encodings train fine in bf16/fp16, cf. the reference's fp16 tables).
-  * packed (kernel space): f32 [rows, 128], lane p = vertex·2 + f2 holding
-    bits bf16(f=2·f2) | bf16(f=2·f2+1) << 16.
-
-Bit-safety: packed values flow ONLY through gathers/selects/stores in the
-kernel (bit-preserving). No arithmetic ever touches packed bits — in
-particular the F=2 path's one-hot MXU gather is NOT used here: an MXU
-multiply-by-one on packed bits would flush the f32-denormal pattern that
-arises whenever the hi feature is ±0 (exponent bits all zero), destroying
-the lo feature's payload. Unpacking is integer shift + `pltpu.bitcast`
-(probe: experiments/mosaic_feature_probe.py, bit-exact).
+    bf16 in the encode (straight-through), cf. the reference's fp16 tables.
+  * packed (`pack_table4`): f32 [rows, 128], lane p = vertex·2 + f2 holding
+    bits bf16(f=2·f2) | bf16(f=2·f2+1) << 16 — a storage format.
 
 Reference for behavior: csrc/lotd fp16 hash path (lotd_encoding.h); this
-is a from-scratch TPU design sharing the brick layout of lotd_brick.py.
+is a from-scratch design sharing the brick layout of lotd_brick.py.
 """
 
 from __future__ import annotations
-
-import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nr3d_lib_tpu.ops import lotd_brick as B
 from nr3d_lib_tpu.ops.lotd_brick import (BRICK_W, LANES, BrickMeta,
                                          _corner_weights,
-                                         _level_rows_and_lanes, _pad_points,
-                                         _prologue, make_brick_meta,
+                                         _level_rows_and_lanes,
+                                         make_brick_meta,
                                          vertex_grid_to_brick_rows)
 
-__all__ = ["make_brick4_meta", "brick4_encode", "brick4_encode_frozen_x",
-           "brick4_encode_xla", "brick4_nablas", "pack_table4",
+__all__ = ["make_brick4_meta", "brick4_encode_xla", "pack_table4",
            "materialize_dense_brick4"]
 
 Array = jax.Array
 
-def _B_prec():
-    from nr3d_lib_tpu.ops import lotd_brick as _b
-    return _b._DOT_PRECISION
-
-
 N_FEAT4 = 4
-_MAX_CHUNK = 1 << 19
-_FWD_BLOCK = 1024
 
 
 def make_brick4_meta(lod_res, lod_types, hashmap_rows: int = 4096
@@ -80,10 +56,8 @@ def pack_table4(t: Array) -> Array:
 
 
 def _quantize4(t: Array) -> Array:
-    """The packed path's value semantics: params quantized to bf16,
-    straight-through for gradients (the Pallas backward accumulates
-    full-precision cotangents; the XLA fallback must match — a vjp through
-    the cast would round the cotangents to bf16 too)."""
+    """Params quantized to bf16, straight-through for gradients (a vjp
+    through the cast would round the cotangents to bf16 too)."""
     q = t.astype(jnp.bfloat16).astype(jnp.float32)
     return t + jax.lax.stop_gradient(q - t)
 
@@ -98,12 +72,10 @@ def materialize_dense_brick4(vertex_params: Array, level) -> Array:
     return vertex_params[jnp.asarray(idx.reshape(-1, 256))]
 
 
-# ------------------------------------------------------------ XLA reference
+# -------------------------------------------------------------------- encode
 def brick4_encode_xla(x: Array, table: Array, meta: BrickMeta) -> Array:
-    """Pure-XLA reference (tests, CPU, higher-order autodiff).
-
-    table: UNPACKED [rows, 256]. Returns [N, 4L]. Values are bf16-quantized
-    to match the packed kernel exactly."""
+    """x [N,3] in [0,1] × UNPACKED table [rows, 256] → [N, 4L], with the
+    table values bf16-quantized (straight-through)."""
     tq = _quantize4(table)
     outs = []
     for level in meta.levels:
@@ -119,1109 +91,3 @@ def brick4_encode_xla(x: Array, table: Array, meta: BrickMeta) -> Array:
             vals = jnp.take_along_axis(rows, lanes + f, axis=1)
             outs.append(jnp.sum(w * vals, -1))
     return jnp.stack(outs, axis=-1)
-
-
-# ------------------------------------------------------------ lane patterns
-def _reduce_matrix4(n_levels: int) -> np.ndarray:
-    """[128, 4L]: lane l·32+q sums into output col l·4 + (q&3)."""
-    m = np.zeros((LANES, 4 * n_levels), np.float32)
-    for lane in range(32 * n_levels):
-        m[lane, (lane // 32) * 4 + (lane & 3)] = 1.0
-    return m
-
-
-def _dx_matrix4(meta: BrickMeta) -> np.ndarray:
-    """[128, 4]: per-lane trilinear-derivative sign · (res−2) per axis."""
-    m = np.zeros((LANES, 4), np.float32)
-    for l, level in enumerate(meta.levels):
-        for q in range(32):
-            k = q >> 2
-            bits = ((k >> 2) & 1, (k >> 1) & 1, k & 1)
-            lane = l * 32 + q
-            for a in range(3):
-                m[lane, a] = (2.0 * bits[a] - 1.0) * (level.res[a] - 2)
-    return m
-
-
-def _unpack_bits(g: Array, half: Array) -> Array:
-    """Packed f32 vreg bits → selected bf16 half as f32 (bit-exact)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    u = pltpu.bitcast(g, jnp.uint32)
-    lo = pltpu.bitcast(u << 16, jnp.float32)
-    hi = pltpu.bitcast(u & jnp.uint32(0xFFFF0000), jnp.float32)
-    return jnp.where(half > 0, hi, lo)
-
-
-def _lane_pattern(meta: BrickMeta, block: int):
-    """Shared per-lane decode for the F=4 kernels."""
-    L = meta.n_levels
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> 5, L - 1)
-    q = lane_i & 31
-    k = q >> 2
-    f = q & 3
-    bits = ((k >> 2) & 1, (k >> 1) & 1, k & 1)
-    # packed-lane delta of (corner, f2) relative to lane0 (= vertex0·2)
-    off = (bits[0] * (BRICK_W * BRICK_W) + bits[1] * BRICK_W + bits[2]) * 2 \
-        + (f >> 1)
-    return lane_i, lvl, q, f, bits, off
-
-
-# -------------------------------------------------------------- fwd kernel
-def _fwd4_kernel_v3(meta: BrickMeta, tile: int, block: int, want_g: bool,
-                    rows_ref, lane_ref, frac_ref, table_ref, m_ref,
-                    *refs):
-    """Software-pipelined F=4 forward (same A/B scheme as
-    lotd_brick._fwd_kernel_v3: scalar gathers of block j+1 interleave with
-    block j's VPU extraction).
-
-    want_g: additionally store the PACKED per-lane corner selections g
-    [tile,128] (bit-preserving vector store) — the v4 backward unpacks
-    them instead of re-issuing the table gathers."""
-    from jax.experimental import pallas as pl
-
-    if want_g:
-        out_ref, g_out_ref, buf_a, buf_b = refs
-    else:
-        out_ref, buf_a, buf_b = refs
-        g_out_ref = None
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    lane_i, lvl, q, f, bits, off = _lane_pattern(meta, block)
-    half = f & 1
-
-    def gather_level(buf, base, l):
-        B._copy_rows(buf, l * block, table_ref,
-                     lambda j: rows_ref[l, base + j], block)
-
-    def extract(buf, base, gather_next):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        lane0 = jnp.take_along_axis(lane_pad, lvl, axis=1)
-        wanted = lane0 + off
-        g = jnp.zeros((block, LANES), buf.dtype)
-        for l in range(L):
-            if gather_next is not None:
-                buf_w, base_w = gather_next
-                gather_level(buf_w, base_w, l)
-            rows = buf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-        if g_out_ref is not None:
-            g_out_ref[pl.ds(base, block), :] = g
-        gval = _unpack_bits(g, half)
-        w = jnp.ones((block, LANES), buf.dtype)
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            w = w * jnp.where(bit > 0, f_a, 1.0 - f_a)
-        out_ref[pl.ds(base, block), :] = jnp.dot(
-            gval * w, m_ref[:], preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-        ).astype(out_ref.dtype)
-
-    for l in range(L):
-        gather_level(buf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        extract(buf_a, b0, (buf_b, b0 + block))
-
-        @pl.when(b0 + 2 * block < tile)
-        def _():
-            extract(buf_b, b0 + block, (buf_a, b0 + 2 * block))
-
-        @pl.when(b0 + 2 * block >= tile)
-        def _():
-            extract(buf_b, b0 + block, None)
-
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-
-
-# -------------------------------------------------------------- bwd kernel
-def _bwd4_kernel_v3(meta: BrickMeta, tile: int, block: int, need_dx: bool,
-                    rows_ref, lane_ref, frac_ref, table_ref, m_ref,
-                    gup_ref, dtab_lo_ref, dtab_hi_ref, dx_ref, gbuf_a,
-                    gbuf_b, sbuf_a, sbuf_b):
-    """Software-pipelined F=4 backward. The dL/dtable accumulator is TWO
-    [rows, 128] half-plane refs (LO = features f&1==0, HI = f&1==1;
-    feature f of vertex v at lane v·2 + (f>>1)); the public wrapper
-    permutes to the natural unpacked layout. Separate 128-wide refs are a
-    hardware requirement, not a style choice: Mosaic rejects dynamic-row
-    (1,128) loads/stores that carry a column offset into a 256-wide
-    memref ("dynamic load with unaligned indices" — caught on the real
-    chip; interpret mode does not check alignment)."""
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_lo_ref[:, :] = jnp.zeros_like(dtab_lo_ref)
-        dtab_hi_ref[:, :] = jnp.zeros_like(dtab_hi_ref)
-
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    lane_i, lvl, q, f, bits, off = _lane_pattern(meta, block)
-    half = f & 1
-
-    def gather_level(buf, base, l):
-        B._copy_rows(buf, l * block, table_ref,
-                     lambda j: rows_ref[l, base + j], block)
-
-    def scatter_level(sbuf, base, l):
-        B._scatter_rows(dtab_lo_ref, sbuf, l * (2 * block),
-                        lambda j: rows_ref[l, base + j], block)
-        B._scatter_rows(dtab_hi_ref, sbuf, l * (2 * block) + block,
-                        lambda j: rows_ref[l, base + j], block)
-
-    def process(gbuf, sbuf, base, next_base, prev_base, prev_sbuf):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        gup_blk = gup_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        gup_pad = jnp.pad(gup_blk, ((0, 0), (0, LANES - gup_blk.shape[1])))
-        gb = jnp.take_along_axis(gup_pad, lvl * 4 + (q & 3), axis=1)
-
-        s = []
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-        w = s[0] * s[1] * s[2]
-
-        lane0 = jnp.take_along_axis(lane_pad, lvl, axis=1)
-        wanted = lane0 + off
-        other_gbuf = gbuf_b if gbuf is gbuf_a else gbuf_a
-        g = jnp.zeros((block, LANES), gbuf.dtype)
-        for l in range(L):
-            if need_dx:
-                @pl.when(next_base < tile)
-                def _(l=l):
-                    gather_level(other_gbuf, next_base, l)
-
-            @pl.when(prev_base >= 0)
-            def _(l=l):
-                scatter_level(prev_sbuf, prev_base, l)
-
-            if need_dx:
-                rows_l = gbuf[pl.ds(l * block, block), :]
-                g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-                g = jnp.where(lvl == l, g_l, g)
-
-        if need_dx:
-            gval = _unpack_bits(g, half)
-            h = gb * gval
-            tx = h * s[1] * s[2]
-            ty = h * s[0] * s[2]
-            tz = h * s[0] * s[1]
-            dx0 = jnp.dot(tx, m_ref[:, 0:1],
-                          preferred_element_type=jnp.float32,
-                   precision=_B_prec())
-            dx1 = jnp.dot(ty, m_ref[:, 1:2],
-                          preferred_element_type=jnp.float32,
-                   precision=_B_prec())
-            dx2 = jnp.dot(tz, m_ref[:, 2:3],
-                          preferred_element_type=jnp.float32,
-                   precision=_B_prec())
-            dx_ref[pl.ds(base, block), :] = jnp.concatenate(
-                [dx0, dx1, dx2], axis=-1).astype(dx_ref.dtype)
-        else:
-            dx_ref[pl.ds(base, block), :] = jnp.zeros(
-                (block, 3), dx_ref.dtype)
-
-        # slabs: target packed lane m = lane0 + d, d = 32dx+8dy+2dz+f2;
-        # per half-plane the contribution comes from src lane
-        # l·32 + corner(d)·4 + 2·f2 + half
-        contrib = gb * w
-        for l in range(L):
-            lane0_l = jnp.take_along_axis(
-                lane_pad, jnp.full((block, LANES), l, jnp.int32), axis=1)
-            d = lane_i - lane0_l
-            valid = (d >= 0) & (d <= 43) & ((d & 0b0010100) == 0)
-            dxb = (d >> 5) & 1
-            dyb = (d >> 3) & 1
-            dzb = (d >> 1) & 1
-            qinv = dxb * 4 + dyb * 2 + dzb
-            base_src = jnp.clip(l * 32 + qinv * 4 + (d & 1) * 2, 0,
-                                LANES - 2)
-            for hp in range(2):
-                slab = jnp.where(
-                    valid,
-                    jnp.take_along_axis(contrib, base_src + hp, axis=1),
-                    0.0)
-                sbuf[pl.ds(l * (2 * block) + hp * block, block), :] = slab
-
-    if need_dx:
-        for l in range(L):
-            gather_level(gbuf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(gbuf_a, sbuf_a, b0, b0 + block, b0 - block, sbuf_b)
-        process(gbuf_b, sbuf_b, b0 + block, b0 + 2 * block, b0, sbuf_a)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-    for l in range(L):
-        scatter_level(sbuf_b, tile - block, l)
-
-
-def _bwd4_kernel_v4(meta: BrickMeta, tile: int, block: int, need_dx: bool,
-                    *refs):
-    """Round-5 F=4 backward (same two structural changes as
-    lotd_brick._bwd_kernel_v4): dL/dtable is 2L per-(level, half-plane)
-    output refs — the point-outer / ref-inner scatter interleaves 2L
-    provably-disjoint RMW chains instead of serializing block-long chains
-    per ref — and the table gather is gone (the forward saves the packed
-    corner selections g; unpacking is bit-exact `_unpack_bits`).
-
-    Ref layout: rows(level-local SMEM), lane, frac, gup, [g, m if
-    need_dx], outputs [lo_0..lo_{L-1}, hi_0..hi_{L-1}, dx], scratch
-    [sbuf_a, sbuf_b] (each [L·2·block, 128]: level-major, lo then hi)."""
-    from jax.experimental import pallas as pl
-
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    if need_dx:
-        rows_ref, lane_ref, frac_ref, gup_ref, g_ref, m_ref = refs[:6]
-        rest = refs[6:]
-    else:
-        rows_ref, lane_ref, frac_ref, gup_ref = refs[:4]
-        g_ref = m_ref = None
-        rest = refs[4:]
-    lo_refs = rest[:L]
-    hi_refs = rest[L:2 * L]
-    dx_ref = rest[2 * L]
-    sbuf_a, sbuf_b = rest[2 * L + 1:2 * L + 3]
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        for dr in lo_refs + hi_refs:
-            dr[:, :] = jnp.zeros_like(dr)
-
-    lane_i, lvl, q, f, bits, off = _lane_pattern(meta, block)
-    half = f & 1
-    sb = max(B._STORE_BATCH, 1)
-    CH = block // L
-    INNER = min(64, CH)
-
-    def scatter_chunk(sbuf, base, c):
-        def body(i, _):
-            n0 = c * CH + i * INNER
-            for k in range(0, INNER, sb):
-                blo = [sbuf[pl.ds(l * 2 * block + n0 + k, sb), :]
-                       for l in range(L)]
-                bhi = [sbuf[pl.ds(l * 2 * block + block + n0 + k, sb), :]
-                       for l in range(L)]
-                for i2 in range(sb):
-                    for l in range(L):
-                        r = rows_ref[l, base + n0 + k + i2]
-                        lo_refs[l][pl.ds(r, 1), :] = \
-                            lo_refs[l][pl.ds(r, 1), :] + blo[l][i2:i2 + 1, :]
-                        hi_refs[l][pl.ds(r, 1), :] = \
-                            hi_refs[l][pl.ds(r, 1), :] + bhi[l][i2:i2 + 1, :]
-            return 0
-
-        jax.lax.fori_loop(0, CH // INNER, body, 0)
-
-    def process(sbuf, base, prev_sbuf, prev_base):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        gup_blk = gup_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        gup_pad = jnp.pad(gup_blk, ((0, 0), (0, LANES - gup_blk.shape[1])))
-        gb = jnp.take_along_axis(gup_pad, lvl * 4 + (q & 3), axis=1)
-
-        s = []
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-        w = s[0] * s[1] * s[2]
-        contrib = gb * w
-        for l in range(L):
-            lane0_l = jnp.take_along_axis(
-                lane_pad, jnp.full((block, LANES), l, jnp.int32), axis=1)
-            d = lane_i - lane0_l
-            valid = (d >= 0) & (d <= 43) & ((d & 0b0010100) == 0)
-            dxb = (d >> 5) & 1
-            dyb = (d >> 3) & 1
-            dzb = (d >> 1) & 1
-            qinv = dxb * 4 + dyb * 2 + dzb
-            base_src = jnp.clip(l * 32 + qinv * 4 + (d & 1) * 2, 0,
-                                LANES - 2)
-            for hp in range(2):
-                slab = jnp.where(
-                    valid,
-                    jnp.take_along_axis(contrib, base_src + hp, axis=1),
-                    0.0)
-                sbuf[pl.ds(l * 2 * block + hp * block, block), :] = slab
-
-            @pl.when(prev_base >= 0)
-            def _(l=l):
-                scatter_chunk(prev_sbuf, prev_base, l)
-
-        if need_dx:
-            g = g_ref[pl.ds(base, block), :]
-            gval = _unpack_bits(g, half)
-            h = gb * gval
-            tx = h * s[1] * s[2]
-            ty = h * s[0] * s[2]
-            tz = h * s[0] * s[1]
-            dx0 = jnp.dot(tx, m_ref[:, 0:1],
-                          preferred_element_type=jnp.float32,
-                          precision=_B_prec())
-            dx1 = jnp.dot(ty, m_ref[:, 1:2],
-                          preferred_element_type=jnp.float32,
-                          precision=_B_prec())
-            dx2 = jnp.dot(tz, m_ref[:, 2:3],
-                          preferred_element_type=jnp.float32,
-                          precision=_B_prec())
-            dx_ref[pl.ds(base, block), :] = jnp.concatenate(
-                [dx0, dx1, dx2], axis=-1).astype(dx_ref.dtype)
-        else:
-            dx_ref[pl.ds(base, block), :] = jnp.zeros(
-                (block, 3), dx_ref.dtype)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(sbuf_a, b0, sbuf_b, b0 - block)
-        process(sbuf_b, b0 + block, sbuf_a, b0)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-    for c in range(L):
-        scatter_chunk(sbuf_b, tile - block, c)
-
-
-# ---------------------------------------------------------------- plumbing
-def _halfplane_to_natural(dtab_hp: Array) -> Array:
-    """[rows, 256] half-plane layout → natural unpacked (lane v·4+f)."""
-    # natural u = v*4 + f  ←  col (f&1)*128 + v*2 + (f>>1)
-    v = np.arange(256) // 4
-    f = np.arange(256) % 4
-    src = (f & 1) * LANES + v * 2 + (f >> 1)
-    return dtab_hp[:, jnp.asarray(src, jnp.int32)]
-
-
-def _brick4_fwd_pallas(x: Array, table_unpacked: Array, meta: BrickMeta,
-                       tile: int = 2048, interpret: bool = False) -> Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import loop_chunks
-
-        def body(xc):
-            return (_brick4_fwd_pallas(xc, table_unpacked, meta, tile,
-                                       interpret),), ()
-
-        (out,), _ = loop_chunks(body, (x,), n0, _MAX_CHUNK)
-        return out
-    table = pack_table4(table_unpacked)
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, jnp.float32, tile)
-    m_red = jnp.asarray(_reduce_matrix4(L), jnp.float32)
-    block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-    kernel = functools.partial(_fwd4_kernel_v3, meta, tile, block, False)
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, 4 * L), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_pad, 4 * L), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((L * block, LANES), jnp.float32),
-                        pltpu.VMEM((L * block, LANES), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, table, m_red)
-    return out[:n]
-
-
-def _brick4_bwd_pallas(x: Array, table_unpacked: Array, g_up: Array,
-                       meta: BrickMeta, tile: int = 2048,
-                       interpret: bool = False, need_dx: bool = True
-                       ) -> Tuple[Array, Array]:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        def body(xc, gc):
-            dx_i, dt_i = _brick4_bwd_pallas(xc, table_unpacked, gc, meta,
-                                            tile, interpret, need_dx)
-            return (dx_i,), (dt_i,)
-
-        (dx,), (dtab,) = scan_chunks(
-            body, (x, g_up), n0, _MAX_CHUNK,
-            sum_init=(jnp.zeros_like(table_unpacked),))
-        return dx, dtab
-    table = pack_table4(table_unpacked)
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, jnp.float32, tile)
-    m_dx = jnp.asarray(_dx_matrix4(meta), jnp.float32)
-    block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-    kernel = functools.partial(_bwd4_kernel_v3, meta, tile, block, need_dx)
-    dtab_lo, dtab_hi, dx = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 4 * L), lambda i: (i, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((table.shape[0], LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((table.shape[0], LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((table.shape[0], LANES), jnp.float32),
-            jax.ShapeDtypeStruct((table.shape[0], LANES), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad, 3), jnp.float32),
-        ),
-        scratch_shapes=[pltpu.VMEM((L * block, LANES), jnp.float32)
-                        for _ in range(2)] +
-                       [pltpu.VMEM((L * 2 * block, LANES), jnp.float32)
-                        for _ in range(2)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, table, m_dx, g_up)
-    dtab_hp = jnp.concatenate([dtab_lo, dtab_hi], axis=1)
-    return dx[:n], _halfplane_to_natural(dtab_hp)
-
-
-def _v4_ok4(meta: BrickMeta, tile: int = 2048) -> bool:
-    """v4 eligibility for the F=4 backward (mirrors lotd_brick._v4_ok)."""
-    if B._BWD_VERSION != 4:
-        return False
-    block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-    L = meta.n_levels
-    if tile % (2 * block) != 0 or block % L != 0:
-        return False
-    ch = block // L
-    inner = min(64, ch)
-    sb = max(B._STORE_BATCH, 1)
-    return ch % inner == 0 and inner % sb == 0
-
-
-def _brick4_fwd_pallas_g(x: Array, table_unpacked: Array, meta: BrickMeta,
-                         tile: int = 2048, interpret: bool = False
-                         ) -> Tuple[Array, Array]:
-    """Forward + PACKED corner selections g [N,128] (v4 residual)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import loop_chunks
-
-        def body(xc):
-            return _brick4_fwd_pallas_g(xc, table_unpacked, meta, tile,
-                                        interpret), ()
-
-        (out, gpk), _ = loop_chunks(body, (x,), n0, _MAX_CHUNK)
-        return out, gpk
-    table = pack_table4(table_unpacked)
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, jnp.float32, tile)
-    m_red = jnp.asarray(_reduce_matrix4(L), jnp.float32)
-    block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-    kernel = functools.partial(_fwd4_kernel_v3, meta, tile, block, True)
-    out, gpk = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((tile, 4 * L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((n_pad, 4 * L), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad, LANES), jnp.float32),
-        ),
-        scratch_shapes=[pltpu.VMEM((L * block, LANES), jnp.float32),
-                        pltpu.VMEM((L * block, LANES), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, table, m_red)
-    return out[:n], gpk[:n]
-
-
-def _brick4_bwd_pallas_v4(x: Array, g_packed, g_up: Array, meta: BrickMeta,
-                          n_rows_total: int, tile: int = 2048,
-                          interpret: bool = False, need_dx: bool = True
-                          ) -> Tuple[Array, Array]:
-    """v4 F=4 backward: (dL/dx [N,3], dL/dtable UNPACKED [rows,256])."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        per_point = (x, g_up) if g_packed is None else (x, g_up, g_packed)
-
-        def body(xc, gc, *rest):
-            dx_i, dt_i = _brick4_bwd_pallas_v4(
-                xc, rest[0] if rest else None, gc, meta, n_rows_total,
-                tile, interpret, need_dx)
-            return (dx_i,), (dt_i,)
-
-        (dx,), (dtab,) = scan_chunks(
-            body, per_point, n0, _MAX_CHUNK,
-            sum_init=(jnp.zeros((n_rows_total, 2 * LANES), jnp.float32),))
-        return dx, dtab
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    if g_packed is not None and g_packed.shape[0] != n_pad:
-        g_packed = jnp.pad(g_packed,
-                           ((0, n_pad - g_packed.shape[0]), (0, 0)))
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, jnp.float32, tile)
-    offs = jnp.asarray([lev.row_offset for lev in meta.levels],
-                       jnp.int32)[:, None]
-    rows = rows - offs
-    block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-    kernel = functools.partial(_bwd4_kernel_v4, meta, tile, block, need_dx)
-    pad8 = B._pad8
-    in_specs = [
-        pl.BlockSpec((L, tile), lambda i: (0, i), memory_space=pltpu.SMEM),
-        pl.BlockSpec((tile, L), lambda i: (i, 0)),
-        pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-        pl.BlockSpec((tile, 4 * L), lambda i: (i, 0)),
-    ]
-    operands = [rows, lane_c, frac_c, g_up]
-    if need_dx:
-        in_specs += [pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                     pl.BlockSpec(memory_space=pltpu.VMEM)]
-        operands += [g_packed, jnp.asarray(_dx_matrix4(meta), jnp.float32)]
-    lvl_specs = tuple(
-        pl.BlockSpec((pad8(lev.n_rows), LANES), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM)
-        for lev in meta.levels)
-    lvl_shapes = tuple(
-        jax.ShapeDtypeStruct((pad8(lev.n_rows), LANES), jnp.float32)
-        for lev in meta.levels)
-    outs = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=in_specs,
-        out_specs=lvl_specs + lvl_specs + (
-            pl.BlockSpec((tile, 3), lambda i: (i, 0)),),
-        out_shape=lvl_shapes + lvl_shapes + (
-            jax.ShapeDtypeStruct((n_pad, 3), jnp.float32),),
-        scratch_shapes=[pltpu.VMEM((L * 2 * block, LANES), jnp.float32)
-                        for _ in range(2)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(*operands)
-    dtab_lo = jnp.concatenate(
-        [d[:lev.n_rows] for d, lev in zip(outs[:L], meta.levels)], axis=0)
-    dtab_hi = jnp.concatenate(
-        [d[:lev.n_rows] for d, lev in zip(outs[L:2 * L], meta.levels)],
-        axis=0)
-    dtab_hp = jnp.concatenate([dtab_lo, dtab_hi], axis=1)
-    return outs[2 * L][:n], _halfplane_to_natural(dtab_hp)
-
-
-# ------------------------------------------------------- second-order kernels
-def _aux_patterns4(meta: BrickMeta) -> np.ndarray:
-    """[8, 128] per-lane sign/scale patterns (F=4 layout: 32 lanes/level).
-
-    rows 0-2: D̂_a(lane) = (2·bit_a−1)·(res_a−2); rows 3-5: Â_{ab} =
-    D̂_a·D̂_b for (a,b) ∈ {(0,1),(0,2),(1,2)}. Zero on lanes ≥ 32L."""
-    L = len(meta.levels)
-    m = np.zeros((8, LANES), np.float32)
-    pairs = ((0, 1), (0, 2), (1, 2))
-    for l, level in enumerate(meta.levels):
-        for q in range(32):
-            k = q >> 2
-            bits = ((k >> 2) & 1, (k >> 1) & 1, k & 1)
-            lane = l * 32 + q
-            d = [(2.0 * bits[a] - 1.0) * (level.res[a] - 2)
-                 for a in range(3)]
-            for a in range(3):
-                m[a, lane] = d[a]
-            for p, (a, b) in enumerate(pairs):
-                m[3 + p, lane] = d[a] * d[b]
-    return m
-
-
-def _dydx4_kernel_v3(meta: BrickMeta, tile: int, block: int,
-                     rows_ref, lane_ref, frac_ref, table_ref, m_ref,
-                     gup_ref, dx_ref, buf_a, buf_b):
-    """F=4 nablas kernel (dL/dx only): pipelined like the F=2
-    `_dydx_kernel_v3`, with the packed-row unpack."""
-    from jax.experimental import pallas as pl
-
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    lane_i, lvl, q, f, bits, off = _lane_pattern(meta, block)
-    half = f & 1
-
-    def gather_level(buf, base, l):
-        B._copy_rows(buf, l * block, table_ref,
-                     lambda j: rows_ref[l, base + j], block)
-
-    def process(buf, base, next_base):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        gup_blk = gup_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        gup_pad = jnp.pad(gup_blk, ((0, 0), (0, LANES - gup_blk.shape[1])))
-        gb = jnp.take_along_axis(gup_pad, lvl * 4 + (q & 3), axis=1)
-
-        lane0 = jnp.take_along_axis(lane_pad, lvl, axis=1)
-        wanted = lane0 + off
-        other = buf_b if buf is buf_a else buf_a
-        g = jnp.zeros((block, LANES), buf.dtype)
-        for l in range(L):
-            @pl.when(next_base < tile)
-            def _(l=l):
-                gather_level(other, next_base, l)
-
-            rows_l = buf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-        gval = _unpack_bits(g, half)
-
-        s = []
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-        h = gb * gval
-        tx = h * s[1] * s[2]
-        ty = h * s[0] * s[2]
-        tz = h * s[0] * s[1]
-        dx0 = jnp.dot(tx, m_ref[:, 0:1], preferred_element_type=jnp.float32,
-                   precision=_B_prec())
-        dx1 = jnp.dot(ty, m_ref[:, 1:2], preferred_element_type=jnp.float32,
-                   precision=_B_prec())
-        dx2 = jnp.dot(tz, m_ref[:, 2:3], preferred_element_type=jnp.float32,
-                   precision=_B_prec())
-        dx_ref[pl.ds(base, block), :] = jnp.concatenate(
-            [dx0, dx1, dx2], -1).astype(dx_ref.dtype)
-
-    for l in range(L):
-        gather_level(buf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(buf_a, b0, b0 + block)
-        process(buf_b, b0 + block, b0 + 2 * block)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-
-
-def _bwd24_kernel_v3(meta: BrickMeta, tile: int, block: int,
-                     rows_ref, lane_ref, frac_ref, table_ref, mred_ref,
-                     aux_ref, gup_ref, gg_ref,
-                     dgup_ref, dtab_lo_ref, dtab_hi_ref, dx_ref, gbuf_a,
-                     gbuf_b, sbuf_a, sbuf_b):
-    """F=4 backward OF the nablas op: cotangents (d_gup [N,4L], d_x [N,3],
-    d_table half-planes 2×[rows, 128]) given gg = cot(dL/dx). Same math
-    as the F=2 `_bwd2_kernel_v3` with the packed unpack and half-plane
-    scatter of `_bwd4_kernel_v3` (two 128-wide accumulator refs — Mosaic
-    rejects dynamic-row loads with a column offset on 256-wide memrefs)."""
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_lo_ref[:, :] = jnp.zeros_like(dtab_lo_ref)
-        dtab_hi_ref[:, :] = jnp.zeros_like(dtab_hi_ref)
-
-    L = meta.n_levels
-    nblk = tile // block
-    assert nblk % 2 == 0
-    lane_i, lvl, q, f, bits, off = _lane_pattern(meta, block)
-    half = f & 1
-    aux = aux_ref[:]                                          # [8,128]
-
-    def gather_level(buf, base, l):
-        B._copy_rows(buf, l * block, table_ref,
-                     lambda j: rows_ref[l, base + j], block)
-
-    def scatter_level(sbuf, base, l):
-        B._scatter_rows(dtab_lo_ref, sbuf, l * (2 * block),
-                        lambda j: rows_ref[l, base + j], block)
-        B._scatter_rows(dtab_hi_ref, sbuf, l * (2 * block) + block,
-                        lambda j: rows_ref[l, base + j], block)
-
-    def process(gbuf, sbuf, base, next_base, prev_base, prev_sbuf):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        frac_blk = frac_ref[pl.ds(base, block), :]
-        gup_blk = gup_ref[pl.ds(base, block), :]
-        gg_blk = gg_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        frac_pad = jnp.pad(frac_blk,
-                           ((0, 0), (0, LANES - frac_blk.shape[1])))
-        gup_pad = jnp.pad(gup_blk, ((0, 0), (0, LANES - gup_blk.shape[1])))
-        gb = jnp.take_along_axis(gup_pad, lvl * 4 + (q & 3), axis=1)
-
-        lane0 = jnp.take_along_axis(lane_pad, lvl, axis=1)
-        wanted = lane0 + off
-        other_gbuf = gbuf_b if gbuf is gbuf_a else gbuf_a
-        g = jnp.zeros((block, LANES), gbuf.dtype)
-        for l in range(L):
-            @pl.when(next_base < tile)
-            def _(l=l):
-                gather_level(other_gbuf, next_base, l)
-
-            @pl.when(prev_base >= 0)
-            def _(l=l):
-                scatter_level(prev_sbuf, prev_base, l)
-
-            rows_l = gbuf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-        gval = _unpack_bits(g, half)
-
-        s = []
-        for a, bit in enumerate(bits):
-            f_a = jnp.take_along_axis(
-                frac_pad, jnp.minimum(3 * lvl + a, LANES - 1), axis=1)
-            s.append(jnp.where(bit > 0, f_a, 1.0 - f_a))
-
-        sp0 = s[1] * s[2]
-        sp1 = s[0] * s[2]
-        sp2 = s[0] * s[1]
-        d0 = aux[0:1, :] * sp0
-        d1 = aux[1:2, :] * sp1
-        d2 = aux[2:3, :] * sp2
-        gg0 = gg_blk[:, 0:1]
-        gg1 = gg_blk[:, 1:2]
-        gg2 = gg_blk[:, 2:3]
-        f_lane = gg0 * d0 + gg1 * d1 + gg2 * d2
-
-        dgup_ref[pl.ds(base, block), :] = jnp.dot(
-            gval * f_lane, mred_ref[:], preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-        ).astype(dgup_ref.dtype)
-
-        h2 = gb * gval
-        u0 = h2 * s[0]
-        u1 = h2 * s[1]
-        u2 = h2 * s[2]
-        ones_col = mred_ref[:, 0:1] * 0.0 + 1.0
-        z0 = gg1 * (u2 * aux[3:4, :]) + gg2 * (u1 * aux[4:5, :])
-        z1 = gg0 * (u2 * aux[3:4, :]) + gg2 * (u0 * aux[5:6, :])
-        z2 = gg0 * (u1 * aux[4:5, :]) + gg1 * (u0 * aux[5:6, :])
-        dxa = jnp.dot(z0, ones_col, preferred_element_type=jnp.float32,
-                   precision=_B_prec())
-        dxb = jnp.dot(z1, ones_col, preferred_element_type=jnp.float32,
-                   precision=_B_prec())
-        dxc = jnp.dot(z2, ones_col, preferred_element_type=jnp.float32,
-                   precision=_B_prec())
-        dx_ref[pl.ds(base, block), :] = jnp.concatenate(
-            [dxa, dxb, dxc], -1).astype(dx_ref.dtype)
-
-        contrib = gb * f_lane
-        for l in range(L):
-            lane0_l = jnp.take_along_axis(
-                lane_pad, jnp.full((block, LANES), l, jnp.int32), axis=1)
-            d = lane_i - lane0_l
-            valid = (d >= 0) & (d <= 43) & ((d & 0b0010100) == 0)
-            dxb_ = (d >> 5) & 1
-            dyb_ = (d >> 3) & 1
-            dzb_ = (d >> 1) & 1
-            qinv = dxb_ * 4 + dyb_ * 2 + dzb_
-            base_src = jnp.clip(l * 32 + qinv * 4 + (d & 1) * 2, 0,
-                                LANES - 2)
-            for hp in range(2):
-                slab = jnp.where(
-                    valid,
-                    jnp.take_along_axis(contrib, base_src + hp, axis=1),
-                    0.0)
-                sbuf[pl.ds(l * (2 * block) + hp * block, block), :] = slab
-
-    for l in range(L):
-        gather_level(gbuf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(gbuf_a, sbuf_a, b0, b0 + block, b0 - block, sbuf_b)
-        process(gbuf_b, sbuf_b, b0 + block, b0 + 2 * block, b0, sbuf_a)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-    for l in range(L):
-        scatter_level(sbuf_b, tile - block, l)
-
-
-def _brick4_dydx_pallas(g_up: Array, x: Array, table_unpacked: Array,
-                        meta: BrickMeta, tile: int = 2048,
-                        interpret: bool = False) -> Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        def body(xc, gc):
-            return (_brick4_dydx_pallas(gc, xc, table_unpacked, meta,
-                                        tile, interpret),), ()
-
-        (dx,), _ = scan_chunks(body, (x, g_up), n0, _MAX_CHUNK)
-        return dx
-    table = pack_table4(table_unpacked)
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, jnp.float32, tile)
-    m_dx = jnp.asarray(_dx_matrix4(meta), jnp.float32)
-    block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-    kernel = functools.partial(_dydx4_kernel_v3, meta, tile, block)
-    dx = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 4 * L), lambda i: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_pad, 3), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((L * block, LANES), jnp.float32)
-                        for _ in range(2)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, table, m_dx, g_up)
-    return dx[:n]
-
-
-def _brick4_bwd2_pallas(g_up: Array, x: Array, table_unpacked: Array,
-                        gg: Array, meta: BrickMeta, tile: int = 2048,
-                        interpret: bool = False
-                        ) -> Tuple[Array, Array, Array]:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        def body(xc, gc, ggc):
-            a, b, c = _brick4_bwd2_pallas(gc, xc, table_unpacked, ggc,
-                                          meta, tile, interpret)
-            return (a, b), (c,)
-
-        (dgup, dx), (dtab,) = scan_chunks(
-            body, (x, g_up, gg), n0, _MAX_CHUNK,
-            sum_init=(jnp.zeros_like(table_unpacked),))
-        return dgup, dx, dtab
-    table = pack_table4(table_unpacked)
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    if gg.shape[0] != n_pad:
-        gg = jnp.pad(gg, ((0, n_pad - gg.shape[0]), (0, 0)))
-    L = meta.n_levels
-    rows, lane_c, frac_c = _prologue(x, meta, jnp.float32, tile)
-    m_red = jnp.asarray(_reduce_matrix4(L), jnp.float32)
-    aux = jnp.asarray(_aux_patterns4(meta), jnp.float32)
-    block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-    kernel = functools.partial(_bwd24_kernel_v3, meta, tile, block)
-    dgup, dtab_lo, dtab_hi, dx = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec((L, tile), lambda i: (0, i),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3 * L), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 4 * L), lambda i: (i, 0)),
-            pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((tile, 4 * L), lambda i: (i, 0)),
-            pl.BlockSpec((table.shape[0], LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((table.shape[0], LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 3), lambda i: (i, 0)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((n_pad, 4 * L), jnp.float32),
-            jax.ShapeDtypeStruct((table.shape[0], LANES), jnp.float32),
-            jax.ShapeDtypeStruct((table.shape[0], LANES), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad, 3), jnp.float32),
-        ),
-        scratch_shapes=[pltpu.VMEM((L * block, LANES), jnp.float32)
-                        for _ in range(2)] +
-                       [pltpu.VMEM((L * 2 * block, LANES), jnp.float32)
-                        for _ in range(2)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(rows, lane_c, frac_c, table, m_red, aux, g_up, gg)
-    dtab_hp = jnp.concatenate([dtab_lo, dtab_hi], axis=1)
-    return dgup[:n], dx[:n], _halfplane_to_natural(dtab_hp)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def brick4_nablas(g_up: Array, x: Array, table: Array,
-                  meta: BrickMeta) -> Array:
-    """Differentiable F=4 nablas: dL/dx of the encode given upstream dL/dy
-    — forward runs the dedicated Pallas kernel on TPU, and ITS backward is
-    the 2nd-order kernel (`_bwd24_kernel_v3`), so eikonal training runs
-    the fast path end to end (mirrors lotd_brick.brick_nablas)."""
-    if jax.default_backend() == "tpu":
-        return _brick4_dydx_pallas(g_up, x, table, meta)
-    _, vjp_fn = jax.vjp(lambda xx: brick4_encode_xla(xx, table, meta), x)
-    return vjp_fn(g_up)[0]
-
-
-def _nablas4_fwd(g_up, x, table, meta):
-    return brick4_nablas(g_up, x, table, meta), (g_up, x, table)
-
-
-def _nablas4_bwd(meta, res, gg):
-    g_up, x, table = res
-    if jax.default_backend() == "tpu":
-        return _brick4_bwd2_pallas(g_up, x, table, gg, meta)
-
-    def nab_fn(gu, xx, tt):
-        _, vjp_fn = jax.vjp(
-            lambda x_: brick4_encode_xla(x_, tt, meta), xx)
-        return vjp_fn(gu)[0]
-
-    _, vjp2 = jax.vjp(nab_fn, g_up, x, table)
-    return vjp2(gg)
-
-
-brick4_nablas.defvjp(_nablas4_fwd, _nablas4_bwd)
-
-
-# ---------------------------------------------------------------- custom vjp
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def brick4_encode(x: Array, table: Array, meta: BrickMeta) -> Array:
-    """F=4 packed brick encode: [N,3] × unpacked [rows,256] → [N, 4L].
-
-    On TPU, forward and first-order backward run the packed Pallas
-    kernels; elsewhere (and for higher-order autodiff — use the XLA
-    reference directly) the bf16-quantized XLA formulation runs."""
-    if jax.default_backend() == "tpu":
-        return _brick4_fwd_pallas(x, table, meta)
-    return brick4_encode_xla(x, table, meta)
-
-
-def _fwd4(x, table, meta):
-    if jax.default_backend() == "tpu" and _v4_ok4(meta):
-        # v4 training path: save the packed corner selections so the
-        # backward issues no table gathers (lotd_brick._bwd_kernel_v4)
-        out, gpk = _brick4_fwd_pallas_g(x, table, meta)
-        return out, (x, table, gpk)
-    return brick4_encode(x, table, meta), (x, table)
-
-
-def _bwd4(meta, res, g):
-    if len(res) == 3:
-        x, table, gpk = res
-        return _brick4_bwd_pallas_v4(x, gpk, g, meta, table.shape[0])
-    x, table = res
-    if jax.default_backend() == "tpu":
-        return _brick4_bwd_pallas(x, table, g, meta)
-    _, vjp_fn = jax.vjp(
-        lambda xx, tt: brick4_encode_xla(xx, tt, meta), x, table)
-    return vjp_fn(g)
-
-
-brick4_encode.defvjp(_fwd4, _bwd4)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def brick4_encode_frozen_x(x: Array, table: Array, meta: BrickMeta) -> Array:
-    """brick4_encode treating x as constant: the backward skips the table
-    gather + unpack entirely (plain radiance-field training)."""
-    x = jax.lax.stop_gradient(x)
-    if jax.default_backend() == "tpu":
-        return _brick4_fwd_pallas(x, table, meta)
-    return brick4_encode_xla(x, table, meta)
-
-
-def _fwd4_frozen(x, table, meta):
-    return brick4_encode_frozen_x(x, table, meta), (x, table)
-
-
-def _bwd4_frozen(meta, res, g):
-    x, table = res
-    if jax.default_backend() == "tpu":
-        _, dtab = _brick4_bwd_pallas(x, table, g, meta, need_dx=False)
-        return jnp.zeros_like(x), dtab
-    _, vjp_fn = jax.vjp(lambda tt: brick4_encode_xla(x, tt, meta), table)
-    return jnp.zeros_like(x), vjp_fn(g)[0]
-
-
-brick4_encode_frozen_x.defvjp(_fwd4_frozen, _bwd4_frozen)

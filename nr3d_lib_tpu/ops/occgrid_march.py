@@ -1,12 +1,12 @@
 """Occupancy-grid ray marching (functional core).
 
-TPU-native re-design of the reference's nerfacc-derived CUDA marcher
+Re-design of the reference's nerfacc-derived CUDA marcher
 (reference: csrc/occ_grid/src/{ray_marching.cu:17-100,batched_marching.cu,
 forest_marching.cu}; API csrc/occ_grid/src/occ_grid.cpp:23-32). The CUDA
 version walks a DDA per ray in two rounds (count, then fill) producing
 ragged packed samples with `dt_gamma` geometric step growth.
 
-TPU version: the step sequence is *closed-form* (geometric-growth steps are
+Here the step sequence is *closed-form* (geometric-growth steps are
 a cumsum of a static-length dt vector), so candidate samples form a dense
 [R, S_max] grid computed entirely vectorized; occupancy lookup masks out
 candidates in empty voxels. Masked results either stay dense (for fixed-count
@@ -18,7 +18,7 @@ Marching happens in the normalized [-1,1]^3 space of the grid.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -62,15 +62,8 @@ def march_steps(near: Array, far: Array, n_steps: int, step_size: float,
 def occgrid_query_axes(occ: Array, x0: Array, x1: Array, x2: Array
                        ) -> Array:
     """Per-axis form of `occgrid_query`: x0/x1/x2 are SAME-SHAPE arrays of
-    normalized coordinates.
-
-    This is the TPU-fast layout: a stacked [..., 3] input puts 3 elements
-    in the 128-lane dimension (2% lane occupancy) and every elementwise op
-    on it runs ~42× under-width — the per-axis form keeps the sample
-    dimension in lanes. `occgrid_march_dense` measured 6.8 ms → the
-    elementwise share drops to VPU-noise with this layout (v5e, 786k
-    samples).
-    """
+    normalized coordinates (the marcher builds them per axis and never
+    stacks a [..., 3] array)."""
     shp = occ.shape
     idxs, inb = [], None
     for xi, ri in zip((x0, x1, x2), shp):
@@ -80,28 +73,17 @@ def occgrid_query_axes(occ: Array, x0: Array, x1: Array, x2: Array
         inb = ok if inb is None else (inb & ok)
         idxs.append(jnp.clip(ii, 0, ri - 1))
     i0, i1, i2 = idxs
-    if jax.default_backend() == "tpu" and occ.ndim == 3 and shp[2] <= 128:
-        from nr3d_lib_tpu.ops.gather1d import gather_rows_lanes
-
-        row = i0 * shp[1] + i1
-        vals = gather_rows_lanes(
-            occ.reshape(shp[0] * shp[1], shp[2]).astype(jnp.float32),
-            row, i2) > 0.5
-    else:
-        flat = (i0 * shp[1] + i1) * shp[2] + i2
-        vals = jnp.take(occ.reshape(-1), flat, mode="clip")
+    flat = (i0 * shp[1] + i1) * shp[2] + i2
+    vals = jnp.take(occ.reshape(-1), flat, mode="clip")
     return vals & inb
 
 
 def occgrid_query(occ: Array, x: Array) -> Array:
     """Query a binary occupancy grid at normalized positions x ∈ [-1,1]^D.
 
-    occ: [r0, r1, r2] bool. Out-of-range queries return False.
-
-    Lowering note (v5e, 786k queries): 3-vector advanced indexing 9.9 ms →
-    single-axis flat take 6.2 ms → Pallas row-gather (TPU only) ~1 ms.
-    Hot paths with coordinates already separated should call
-    `occgrid_query_axes` (lane-layout note there).
+    occ: [r0, r1, r2] bool. Out-of-range queries return False. Lookups are
+    one flat `take`; hot paths with coordinates already separated call
+    `occgrid_query_axes`.
     """
     return occgrid_query_axes(occ, x[..., 0], x[..., 1], x[..., 2])
 
@@ -122,9 +104,7 @@ def occgrid_march_dense(occ: Array, rays_o: Array, rays_d: Array,
     """
     t, dt, in_range = march_steps(near, far, n_steps, step_size, dt_gamma,
                                   max_step_size, perturb_key)
-    # per-axis [R,S] coordinates (sample dim in lanes — see
-    # occgrid_query_axes): a stacked [R,S,3] here measured ~5 ms of
-    # underfilled VPU work at 786k samples
+    # per-axis [R,S] coordinates (see occgrid_query_axes)
     xs = [rays_o[:, None, a] + rays_d[:, None, a] * t for a in range(3)]
     occ_hit = occgrid_query_axes(occ, *xs)
     return t, dt, in_range & occ_hit
@@ -145,21 +125,13 @@ def occgrid_march_batched_dense(occ: Array, bidx: Array,
     shp = occ.shape[1:]
     idxs, inb = [], None
     for a, ri in enumerate(shp):
-        xa = rays_o[:, None, a] + rays_d[:, None, a] * t      # [R,S] lanes
+        xa = rays_o[:, None, a] + rays_d[:, None, a] * t      # [R,S]
         ii = jnp.floor((xa + 1.0) * 0.5 * ri).astype(jnp.int32)
         ok = (ii >= 0) & (ii < ri)
         inb = ok if inb is None else (inb & ok)
         idxs.append(jnp.clip(ii, 0, ri - 1))
     b = jnp.maximum(bidx, 0)[:, None]
     row = (b * shp[0] + idxs[0]) * shp[1] + idxs[1]
-    if jax.default_backend() == "tpu" and shp[2] <= 128:
-        from nr3d_lib_tpu.ops.gather1d import gather_rows_lanes
-
-        vals = gather_rows_lanes(
-            occ.reshape(-1, shp[2]).astype(jnp.float32), row,
-            idxs[2]) > 0.5
-    else:
-        vals = jnp.take(occ.reshape(-1), row * shp[2] + idxs[2],
-                        mode="clip")
+    vals = jnp.take(occ.reshape(-1), row * shp[2] + idxs[2], mode="clip")
     occ_hit = vals & inb & (bidx >= 0)[:, None]
     return t, dt, in_range & occ_hit

@@ -1,13 +1,11 @@
 """Permutohedral-lattice hash encoding (functional core).
 
-TPU-native re-design of the reference's CUDA permuto encoding
+Re-design of the reference's CUDA permuto encoding
 (reference: csrc/permuto/ — permuto_enc_fwd/bwd/bwd_bwd_input,
 PermutoEncMeta csrc/permuto/src/permuto.cpp:46-73; python wrappers
 nr3d_lib/models/grid_encodings/permuto/permuto.py:90-293). The lattice
 needs only d+1 simplex-corner gathers per level instead of 2^d — the
-reference ships it for high-dim inputs (3D+time, latent-conditioned);
-on TPU the lower gather count matters even more (gathers are the
-bottleneck, see memory: tpu-env-pitfalls).
+reference ships it for high-dim inputs (3D+time, latent-conditioned).
 
 Math follows the classic permutohedral lattice construction (Adams et al.
 "Fast High-Dimensional Filtering Using the Permutohedral Lattice", as used
@@ -137,11 +135,8 @@ def _simplex_parts(x: Array, d: int):
     rank = jnp.where(low, rank + dp1, jnp.where(high, rank - dp1, rank))
     rem0 = rem0 + jnp.where(low, dp1, 0.0) - jnp.where(high, dp1, 0.0)
 
-    # barycentric coordinates from the sorted differential. One-hot
-    # arithmetic instead of per-point scatter-adds: XLA scatters issue at
-    # gather-like rates on TPU (~250M/s) and dominated the whole encode
-    # (measured 0.0011 GS/s with scatters; the simplex math is the hot
-    # prologue of the cell-packed kernel path).
+    # barycentric coordinates from the sorted differential, by one-hot
+    # arithmetic instead of per-point scatter-adds.
     vdiff = (elevated - rem0) / dp1                               # [N, d+1]
     j = jnp.arange(dp1 + 1, dtype=jnp.int32)                      # [d+2]
     oh1 = ((d - rank)[..., None] == j).astype(x.dtype)            # [N,d+1,d+2]

@@ -1,11 +1,8 @@
-"""Cell-packed permutohedral encoding — the TPU-native fast path.
+"""Cell-packed permutohedral encoding.
 
 The plain permuto encode (`ops/permuto.py`, reference csrc/permuto/
-permuto_enc_fwd) gathers d+1 narrow rows per (point, level); on TPU random
-gathers issue at ~0.94 G/s through one scalar pipe (docs/DESIGN.md §3), so
-4·L gathers/pt is 4× worse than the LoTD brick path's 1 row/(pt,level).
-
-This module applies the brick trick to the simplex lattice: hash the
+permuto_enc_fwd) gathers d+1 narrow rows per (point, level). This module
+reads one wide row per (point, level) instead. It applies the brick trick to the simplex lattice: hash the
 simplex's **remainder-0 base point** (the cell) to a table row, and give
 every one of the cell's 2^(d+1) possible vertex slots its own lane pair in
 that row. Any of the (d+1)! simplices of the cell reads its d+1 vertices
@@ -19,12 +16,13 @@ Row layout: 128 lanes = C cells × 2^(d+1) slots × 2 feats, C = 128/(2^{d+2})
 (3D: 4 cells/row, 4D: 2, 2D: 8) — no lane is wasted.
 
 Reference for behavior being replaced: csrc/permuto/src/permuto.cpp:46-73 +
-permuto_kernels; this is a from-scratch TPU design, not a translation.
+permuto_kernels; this is a from-scratch design, not a translation. The
+encode is plain XLA (`permuto_cell_encode_xla`), differentiable to any
+order by autodiff.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 from functools import cached_property
@@ -34,25 +32,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nr3d_lib_tpu.ops.lotd_brick import _copy_rows, _scatter_rows
-
-
-def _STORE_BATCH_PC():
-    from nr3d_lib_tpu.ops import lotd_brick as _B
-    return _B._STORE_BATCH
-
 from nr3d_lib_tpu.ops.lotd import HASH_PRIMES
 from nr3d_lib_tpu.ops.permuto import _simplex_parts
 
 __all__ = ["PermutoCellMeta", "make_permuto_cell_meta",
-           "permuto_cell_encode", "permuto_cell_encode_frozen_x",
            "permuto_cell_encode_xla"]
 
 Array = jax.Array
-
-def _B_prec():
-    from nr3d_lib_tpu.ops import lotd_brick as _b
-    return _b._DOT_PRECISION
 
 
 LANES = 128
@@ -89,18 +75,13 @@ class PermutoCellMeta:
 
     @cached_property
     def stride(self) -> int:
-        """Packed-lane stride per level: (d+1+pad) vertices × 2 feats,
-        rounded up to a power of two so in-kernel lane→(level, vertex)
-        decoding is shift/mask arithmetic."""
+        """Lane stride per level: (d+1+pad) vertices × 2 feats, rounded up
+        to a power of two."""
         return 1 << math.ceil(math.log2((self.n_dims + 1) * N_FEAT))
 
     @cached_property
     def vp(self) -> int:                           # padded vertices/level
         return self.stride // N_FEAT
-
-    @cached_property
-    def levels_per_call(self) -> int:
-        return LANES // self.stride
 
     @cached_property
     def n_levels(self) -> int:
@@ -155,9 +136,8 @@ def make_permuto_cell_meta(n_dims: int,
     hashmap capacity becomes a **dense** level: cell → row is a bijective
     box index instead of a hash. Strictly better than hashing on both
     axes — zero collisions (the all-hash reference permuto collides even
-    at coarse levels) and ≤ as many rows (VMEM is the scarce resource:
-    the Pallas kernels keep the whole table resident). Mirrors the LoTD
-    brick Dense/Hash split (`ops/lotd_brick.py`)."""
+    at coarse levels) and ≤ as many rows. Mirrors the LoTD brick
+    Dense/Hash split (`ops/lotd_brick.py`)."""
     if not 2 <= n_dims <= 5:
         raise ValueError(f"n_dims must be in [2, 5], got {n_dims}")
     levels: List[PermutoCellLevel] = []
@@ -228,11 +208,11 @@ def _level_rows_lanes_bary(x: Array, level: PermutoCellLevel,
     return row.astype(jnp.int32), lane.astype(jnp.int32), bary, rank
 
 
-# ------------------------------------------------------------- XLA reference
+# -------------------------------------------------------------------- encode
 def permuto_cell_encode_xla(x: Array, table: Array, meta: PermutoCellMeta,
                             level_weights: Optional[Array] = None) -> Array:
-    """Pure-XLA implementation of the cell layout (tests, CPU execution,
-    higher-order autodiff fallback). table: [total_rows, 128] → [N, 2L]."""
+    """Cell-layout encode: x [N,d] in [0,1] × table [total_rows, 128] →
+    [N, 2L]."""
     outs = []
     for li, level in enumerate(meta.levels):
         row, lane, bary, _ = _level_rows_lanes_bary(x, level, meta)
@@ -248,1118 +228,3 @@ def permuto_cell_encode_xla(x: Array, table: Array, meta: PermutoCellMeta,
         outs.append(y0)
         outs.append(y1)
     return jnp.stack(outs, axis=-1)
-
-
-# --------------------------------------------------------------- pallas path
-def _prologue(x: Array, meta: PermutoCellMeta, dtype,
-              levels: Sequence[PermutoCellLevel]):
-    rows, lanes, barys = [], [], []
-    for level in levels:
-        r, l, b, _ = _level_rows_lanes_bary(x, level, meta)
-        rows.append(r)
-        lanes.append(l)
-        barys.append(b)
-    n = x.shape[0]
-    lc = len(levels)
-    row_arr = jnp.stack(rows)                              # [Lc, N]
-    lane_c = jnp.concatenate(lanes, -1)                    # [N, Lc·Vp]
-    bary_c = jnp.concatenate(barys, -1).astype(dtype)      # [N, Lc·Vp]
-    return row_arr, lane_c, bary_c
-
-
-def _reduce_matrix(meta: PermutoCellMeta, lc: int) -> np.ndarray:
-    """[128, 2·Lc]: packed lane l·stride + k·2 + f sums into col l·2+f
-    (zero rows for lanes ≥ Lc·stride and padded vertices)."""
-    m = np.zeros((LANES, 2 * lc), np.float32)
-    stride = meta.stride
-    for lane in range(lc * stride):
-        q = lane % stride
-        k = q >> 1
-        if k <= meta.n_dims:                               # real vertex
-            m[lane, (lane // stride) * 2 + (q & 1)] = 1.0
-    return m
-
-
-def _gather_phase(lc, tile, rows_ref, table_ref, scratch_ref):
-    """Unrolled scalar row gather (same tuning as the brick kernel:
-    point-outer × 64 unroll, measured 1.76 cyc/row — lotd_brick.py)."""
-    from jax.experimental import pallas as pl
-
-    INNER = 64
-
-    def gather_body(i, _):
-        base = i * INNER
-        sb = max(_STORE_BATCH_PC(), 1)
-        for k in range(0, INNER, sb):
-            n = base + k
-            for l in range(lc):
-                _copy_rows(scratch_ref, l * tile + n, table_ref,
-                           lambda j, l=l, n=n: rows_ref[l, n + j], sb)
-        return 0
-
-    jax.lax.fori_loop(0, tile // INNER, gather_body, 0)
-
-
-def _packed_lanes(meta, lc, tile, lane_ref, bary_ref, scratch_ref):
-    """Extraction: (g [tile,128], w [tile,128]) with packed lane =
-    level·stride + vertex·2 + feat; garbage lanes carry w = 0 via the
-    bary padding + the reduce matrix's zero rows."""
-    from jax.experimental import pallas as pl
-
-    stride = meta.stride
-    shift = stride.bit_length() - 1
-    vp = meta.vp
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (tile, LANES), 1)
-    lvl = jnp.minimum(lane_i >> shift, lc - 1)
-    q = lane_i & (stride - 1)
-    k = q >> 1
-    f = q & 1
-
-    sel = jnp.minimum(lvl * vp + k, LANES - 1)
-    lane_pad = jnp.pad(lane_ref[:],
-                       ((0, 0), (0, LANES - lane_ref.shape[1])))
-    wanted = jnp.take_along_axis(lane_pad, sel, axis=1) + f
-    bary_pad = jnp.pad(bary_ref[:],
-                       ((0, 0), (0, LANES - bary_ref.shape[1])))
-    w = jnp.take_along_axis(bary_pad, sel, axis=1)
-
-    g = jnp.zeros((tile, LANES), scratch_ref.dtype)
-    for l in range(lc):
-        rows = scratch_ref[pl.ds(l * tile, tile), :]
-        g_l = jnp.take_along_axis(rows, wanted, axis=1)
-        g = jnp.where(lvl == l, g_l, g)
-    return g, w
-
-
-def _fwd_kernel(meta: PermutoCellMeta, lc: int, tile: int,
-                rows_ref, lane_ref, bary_ref, table_ref, m_ref,
-                out_ref, scratch_ref):
-    _gather_phase(lc, tile, rows_ref, table_ref, scratch_ref)
-    g, w = _packed_lanes(meta, lc, tile, lane_ref, bary_ref, scratch_ref)
-    out_ref[:, :] = jnp.dot(g * w, m_ref[:],
-                            preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-                            ).astype(out_ref.dtype)
-
-
-def _mxu_spans(group) -> tuple:
-    """Static (li, start, k_pad) for group levels fetched by a one-hot MXU
-    matmul instead of scalar gathers (small tables — same trick and row cap
-    as lotd_brick `_mxu_levels`; spans are relative to the group's rebased
-    table slice). Exact for hashed AND dense-box levels."""
-    if not _MXU_DENSE:
-        return ()
-    base = group[0].row_offset
-    g_rows = sum(l.n_rows for l in group)
-    out = []
-    for li, lev in enumerate(group):
-        if lev.n_rows <= _MXU_MAX_ROWS:
-            k_pad = -(-lev.n_rows // LANES) * LANES
-            start = min(lev.row_offset - base, g_rows - k_pad)
-            if start >= 0:
-                out.append((li, int(start), int(k_pad)))
-    return tuple(out)
-
-
-def _mxu_rows_pc(table_ref, rowsv_ref, base_pt, block, li, start, k_pad):
-    """rows for an MXU level: onehot(row_id − start) @ table_slab."""
-    from jax.experimental import pallas as pl
-
-    rid = rowsv_ref[pl.ds(base_pt, block), li:li + 1] - start
-    iota = jax.lax.broadcasted_iota(jnp.int32, (block, k_pad), 1)
-    onehot = (iota == rid).astype(table_ref.dtype)
-    tab = table_ref[pl.ds(start, k_pad), :]
-    return jnp.dot(onehot, tab, preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-                   ).astype(table_ref.dtype)
-
-
-def _mxu_scatter_pc(dtab_ref, sbuf, rowsh_ref, base_pt, block, li, start,
-                    k_pad, slab_row0):
-    """onehotᵀ @ slab accumulate for an MXU level (exact segment-sum)."""
-    from jax.experimental import pallas as pl
-
-    rid = rowsh_ref[li:li + 1, pl.ds(base_pt, block)] - start  # [1,block]
-    iota0 = jax.lax.broadcasted_iota(jnp.int32, (k_pad, block), 0)
-    onehot_t = (iota0 == rid).astype(dtab_ref.dtype)
-    slab = sbuf[pl.ds(slab_row0, block), :]
-    dtab_ref[pl.ds(start, k_pad), :] = (
-        dtab_ref[pl.ds(start, k_pad), :]
-        + jnp.dot(onehot_t, slab, preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-                  ).astype(dtab_ref.dtype))
-
-
-def _fwd_kernel_v3(meta: PermutoCellMeta, lc: int, tile: int, block: int,
-                   spans: tuple,
-                   rows_ref, lane_ref, bary_ref, rowsv_ref, table_ref,
-                   m_ref, out_ref, buf_a, buf_b):
-    """Software-pipelined forward (same scheme as lotd_brick
-    `_fwd_kernel_v3`, which measured 15.0 vs 23.5 cyc/pt): block j+1's
-    scalar row gathers interleave with block j's VPU extraction, A/B
-    buffers alternating by block parity."""
-    from jax.experimental import pallas as pl
-
-    nblk = tile // block
-    assert nblk % 2 == 0
-    stride = meta.stride
-    shift = stride.bit_length() - 1
-    vp = meta.vp
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> shift, lc - 1)
-    q = lane_i & (stride - 1)
-    k = q >> 1
-    f = q & 1
-    sel = jnp.minimum(lvl * vp + k, LANES - 1)
-
-    mxu = {li: (start, k_pad) for li, start, k_pad in spans}
-
-    def gather_level(buf, base, l):
-        if l in mxu:
-            return
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    def process(buf, base, next_base):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        bary_blk = bary_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        bary_pad = jnp.pad(bary_blk,
-                           ((0, 0), (0, LANES - bary_blk.shape[1])))
-        wanted = jnp.take_along_axis(lane_pad, sel, axis=1) + f
-        w = jnp.take_along_axis(bary_pad, sel, axis=1)
-        other = buf_b if buf is buf_a else buf_a
-        g = jnp.zeros((block, LANES), buf.dtype)
-        for l in range(lc):
-            @pl.when(next_base < tile)
-            def _(l=l):
-                gather_level(other, next_base, l)
-
-            if l in mxu:
-                rows_l = _mxu_rows_pc(table_ref, rowsv_ref, base, block,
-                                      l, *mxu[l])
-            else:
-                rows_l = buf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-        out_ref[pl.ds(base, block), :] = jnp.dot(
-            g * w, m_ref[:], preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-        ).astype(out_ref.dtype)
-
-    for l in range(lc):
-        gather_level(buf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(buf_a, b0, b0 + block)
-        process(buf_b, b0 + block, b0 + 2 * block)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-
-
-def _bwd_kernel(meta: PermutoCellMeta, lc: int, tile: int,
-                rows_ref, lane_ref, bary_ref, gup_ref,
-                dtab_ref, scratch_ref):
-    """dL/dtable scatter-accumulate (positions frozen — the dynamic/
-    conditional radiance-field training case; reference permuto_enc_bwd
-    without need_input_grad). Contribution of point n to its level-l row:
-    bary_k·gup[n, 2l+f] at lane lane_k+f — staged per level as a one-hot
-    slab (d+1 ≤ 5 compares per feat), then row scatter-add."""
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_ref[:, :] = jnp.zeros_like(dtab_ref)
-
-    vp = meta.vp
-    d = meta.n_dims
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (tile, LANES), 1)
-    lane_pad = jnp.pad(lane_ref[:],
-                       ((0, 0), (0, LANES - lane_ref.shape[1])))
-    bary_pad = jnp.pad(bary_ref[:],
-                       ((0, 0), (0, LANES - bary_ref.shape[1])))
-    gup_pad = jnp.pad(gup_ref[:], ((0, 0), (0, LANES - gup_ref.shape[1])))
-
-    for l in range(lc):
-        slab = jnp.zeros((tile, LANES), dtab_ref.dtype)
-        g0 = jnp.take_along_axis(
-            gup_pad, jnp.full((tile, LANES), 2 * l, jnp.int32), axis=1)
-        g1 = jnp.take_along_axis(
-            gup_pad, jnp.full((tile, LANES), 2 * l + 1, jnp.int32), axis=1)
-        for k in range(d + 1):
-            sel = jnp.full((tile, LANES), l * vp + k, jnp.int32)
-            lk = jnp.take_along_axis(lane_pad, sel, axis=1)
-            bk = jnp.take_along_axis(bary_pad, sel, axis=1)
-            slab = slab + jnp.where(lane_i == lk, bk * g0, 0.0)
-            slab = slab + jnp.where(lane_i == lk + 1, bk * g1, 0.0)
-        scratch_ref[pl.ds(l * tile, tile), :] = slab
-
-    INNER = 64
-
-    def scatter_body(i, _):
-        base = i * INNER
-        for kk in range(INNER):
-            n = base + kk
-            for l in range(lc):
-                r = rows_ref[l, n]
-                dtab_ref[pl.ds(r, 1), :] = dtab_ref[pl.ds(r, 1), :] + \
-                    scratch_ref[pl.ds(l * tile + n, 1), :]
-        return 0
-
-    jax.lax.fori_loop(0, tile // INNER, scatter_body, 0)
-
-
-def _slab_level(meta, lc, block, lane_pad, bary_pad, gup_pad, lane_i, l):
-    """Block-sized scatter slab for level l (shared by the v3 backwards)."""
-    vp = meta.vp
-    d = meta.n_dims
-    slab = jnp.zeros((block, LANES), bary_pad.dtype)
-    g0 = jnp.take_along_axis(
-        gup_pad, jnp.full((block, LANES), 2 * l, jnp.int32), axis=1)
-    g1 = jnp.take_along_axis(
-        gup_pad, jnp.full((block, LANES), 2 * l + 1, jnp.int32), axis=1)
-    for k in range(d + 1):
-        sel = jnp.full((block, LANES), l * vp + k, jnp.int32)
-        lk = jnp.take_along_axis(lane_pad, sel, axis=1)
-        bk = jnp.take_along_axis(bary_pad, sel, axis=1)
-        slab = slab + jnp.where(lane_i == lk, bk * g0, 0.0)
-        slab = slab + jnp.where(lane_i == lk + 1, bk * g1, 0.0)
-    return slab
-
-
-def _bwd_kernel_v3(meta: PermutoCellMeta, lc: int, tile: int, block: int,
-                   spans: tuple,
-                   rows_ref, lane_ref, bary_ref, gup_ref, rowsh_ref,
-                   dtab_ref, sbuf_a, sbuf_b):
-    """Software-pipelined table-only backward: block j's slab build (VPU)
-    interleaves with block j−1's scatter-add (scalar core), A/B staging.
-    MXU span levels scatter-add as onehotᵀ @ slab instead."""
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_ref[:, :] = jnp.zeros_like(dtab_ref)
-
-    nblk = tile // block
-    assert nblk % 2 == 0
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    mxu = {li: (start, k_pad) for li, start, k_pad in spans}
-
-    def scatter_level(sbuf, base, l):
-        if l in mxu:
-            _mxu_scatter_pc(dtab_ref, sbuf, rowsh_ref, base, block, l,
-                            *mxu[l], slab_row0=l * block)
-            return
-        _scatter_rows(dtab_ref, sbuf, l * block,
-                      lambda j: rows_ref[l, base + j], block)
-
-    def process(sbuf, base, prev_base, prev_sbuf):
-        lane_pad = jnp.pad(lane_ref[pl.ds(base, block), :],
-                           ((0, 0), (0, LANES - lane_ref.shape[1])))
-        bary_pad = jnp.pad(bary_ref[pl.ds(base, block), :],
-                           ((0, 0), (0, LANES - bary_ref.shape[1])))
-        gup_pad = jnp.pad(gup_ref[pl.ds(base, block), :],
-                          ((0, 0), (0, LANES - gup_ref.shape[1])))
-        for l in range(lc):
-            @pl.when(prev_base >= 0)
-            def _(l=l):
-                scatter_level(prev_sbuf, prev_base, l)
-
-            sbuf[pl.ds(l * block, block), :] = _slab_level(
-                meta, lc, block, lane_pad, bary_pad, gup_pad, lane_i, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(sbuf_a, b0, b0 - block, sbuf_b)
-        process(sbuf_b, b0 + block, b0, sbuf_a)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-    for l in range(lc):
-        scatter_level(sbuf_b, tile - block, l)
-
-
-def _dx_weight_matrix(meta: PermutoCellMeta,
-                      group: Sequence[PermutoCellLevel]) -> np.ndarray:
-    """[128, n_dims] matrix turning the packed dL/delevated lanes
-    (lane = level·Vp + i) into dL/dx via one MXU reduce. Folds the
-    elevation Jacobian M_ia = [a ≥ i] − i·[a == i−1] (ops/permuto.py
-    recurrence), the hyperplane scale sf_a, the per-level lattice scale,
-    and the barycentric 1/(d+1)."""
-    d = meta.n_dims
-    inv_std = (d + 1) * math.sqrt(2.0 / 3.0)
-    sf = np.asarray([1.0 / math.sqrt((a + 1) * (a + 2)) for a in range(d)],
-                    np.float64) * inv_std
-    m = np.zeros((LANES, d), np.float32)
-    vp = meta.vp
-    for li, level in enumerate(group):
-        for i in range(d + 1):
-            lane = li * vp + i
-            if lane >= LANES:
-                break
-            for a in range(d):
-                M_ia = (1.0 if a >= i else 0.0) - (i if a == i - 1 else 0.0)
-                m[lane, a] = M_ia * sf[a] * level.scale[a] / (d + 1)
-    return m
-
-
-def _dx_selectors(meta: PermutoCellMeta, rank: Array, li: int) -> Tuple[Array, Array]:
-    """Packed-lane indices of gf[t1] / gf[t2] for level li's delev lanes.
-
-    rank: [N, d+1]. Returns (sel1, sel2) [N, d+1] int32 pointing at the
-    even feat-lane of the selected vertex in the packed layout."""
-    d = meta.n_dims
-    t1 = d - rank                                     # ∈ [0, d]
-    t2 = jnp.where(rank == 0, 0, d + 1 - rank)
-    base = li * meta.stride
-    return (base + t1 * N_FEAT).astype(jnp.int32), \
-        (base + t2 * N_FEAT).astype(jnp.int32)
-
-
-def _bwd_full_kernel(meta: PermutoCellMeta, lc: int, tile: int,
-                     rows_ref, lane_ref, bary_ref, gup_ref,
-                     sel1_ref, sel2_ref, wmat_ref, table_ref,
-                     dtab_ref, dx_ref, scratch_ref):
-    """Full backward: dL/dtable scatter + dL/dx in one kernel (the
-    reference permuto_enc_bwd with need_input_grad — EmerNeRF flow-warp
-    training differentiates the encode wrt its warped positions).
-
-    dL/delev_i = (gf[d−rank_i] − gf[(d+1−rank_i) mod (d+1)])/(d+1) with
-    gf_k = Σ_f gup[l,f]·feat_{k,f}; dx = delev @ wmat (elevation Jacobian
-    × per-level scales folded into one MXU matmul, `_dx_weight_matrix`).
-    sel1/sel2: [tile, 128] packed-lane indices from `_dx_selectors`,
-    garbage lanes masked by wmat's zero rows."""
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_ref[:, :] = jnp.zeros_like(dtab_ref)
-
-    stride = meta.stride
-    shift = stride.bit_length() - 1
-    vp = meta.vp
-    d = meta.n_dims
-    _gather_phase(lc, tile, rows_ref, table_ref, scratch_ref)
-    g, w = _packed_lanes(meta, lc, tile, lane_ref, bary_ref, scratch_ref)
-
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (tile, LANES), 1)
-    lvl = jnp.minimum(lane_i >> shift, lc - 1)
-    f = lane_i & 1
-    gup_pad = jnp.pad(gup_ref[:], ((0, 0), (0, LANES - gup_ref.shape[1])))
-    gb = jnp.take_along_axis(gup_pad, lvl * 2 + f, axis=1)
-
-    # ---- dx: gf summed over the feat pair, then rank-dependent selection
-    gbg = gb * g
-    gfsum = gbg + jnp.take_along_axis(gbg, lane_i ^ 1, axis=1)
-    delev = (jnp.take_along_axis(gfsum, sel1_ref[:], axis=1)
-             - jnp.take_along_axis(gfsum, sel2_ref[:], axis=1))
-    dx_ref[:, :] = jnp.dot(delev, wmat_ref[:],
-                           preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-                           ).astype(dx_ref.dtype)
-
-    # ---- dtable: same staging as the frozen backward
-    lane_pad = jnp.pad(lane_ref[:],
-                       ((0, 0), (0, LANES - lane_ref.shape[1])))
-    bary_pad = jnp.pad(bary_ref[:],
-                       ((0, 0), (0, LANES - bary_ref.shape[1])))
-    for l in range(lc):
-        slab = jnp.zeros((tile, LANES), dtab_ref.dtype)
-        g0 = jnp.take_along_axis(
-            gup_pad, jnp.full((tile, LANES), 2 * l, jnp.int32), axis=1)
-        g1 = jnp.take_along_axis(
-            gup_pad, jnp.full((tile, LANES), 2 * l + 1, jnp.int32), axis=1)
-        for k in range(d + 1):
-            sel = jnp.full((tile, LANES), l * vp + k, jnp.int32)
-            lk = jnp.take_along_axis(lane_pad, sel, axis=1)
-            bk = jnp.take_along_axis(bary_pad, sel, axis=1)
-            slab = slab + jnp.where(lane_i == lk, bk * g0, 0.0)
-            slab = slab + jnp.where(lane_i == lk + 1, bk * g1, 0.0)
-        scratch_ref[pl.ds(l * tile, tile), :] = slab
-
-    INNER = 64
-
-    def scatter_body(i, _):
-        base = i * INNER
-        for kk in range(INNER):
-            n = base + kk
-            for l in range(lc):
-                r = rows_ref[l, n]
-                dtab_ref[pl.ds(r, 1), :] = dtab_ref[pl.ds(r, 1), :] + \
-                    scratch_ref[pl.ds(l * tile + n, 1), :]
-        return 0
-
-    jax.lax.fori_loop(0, tile // INNER, scatter_body, 0)
-
-
-def _bwd_full_kernel_v3(meta: PermutoCellMeta, lc: int, tile: int,
-                        block: int, spans: tuple,
-                        rows_ref, lane_ref, bary_ref, gup_ref,
-                        sel1_ref, sel2_ref, wmat_ref, rowsv_ref, rowsh_ref,
-                        table_ref,
-                        dtab_ref, dx_ref, gbuf_a, gbuf_b, sbuf_a, sbuf_b):
-    """Software-pipelined full backward: gather j+1 and scatter j−1
-    interleave with block j's dx/slab vector math (scheme of lotd_brick
-    `_bwd_kernel_v3`)."""
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_ref[:, :] = jnp.zeros_like(dtab_ref)
-
-    nblk = tile // block
-    assert nblk % 2 == 0
-    stride = meta.stride
-    shift = stride.bit_length() - 1
-    vp = meta.vp
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> shift, lc - 1)
-    q = lane_i & (stride - 1)
-    kv = q >> 1
-    f = q & 1
-    sel = jnp.minimum(lvl * vp + kv, LANES - 1)
-    mxu = {li: (start, k_pad) for li, start, k_pad in spans}
-
-    def gather_level(buf, base, l):
-        if l in mxu:
-            return
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    def scatter_level(sbuf, base, l):
-        if l in mxu:
-            _mxu_scatter_pc(dtab_ref, sbuf, rowsh_ref, base, block, l,
-                            *mxu[l], slab_row0=l * block)
-            return
-        _scatter_rows(dtab_ref, sbuf, l * block,
-                      lambda j: rows_ref[l, base + j], block)
-
-    def process(gbuf, sbuf, base, next_base, prev_base, prev_sbuf):
-        lane_pad = jnp.pad(lane_ref[pl.ds(base, block), :],
-                           ((0, 0), (0, LANES - lane_ref.shape[1])))
-        bary_pad = jnp.pad(bary_ref[pl.ds(base, block), :],
-                           ((0, 0), (0, LANES - bary_ref.shape[1])))
-        gup_pad = jnp.pad(gup_ref[pl.ds(base, block), :],
-                          ((0, 0), (0, LANES - gup_ref.shape[1])))
-        wanted = jnp.take_along_axis(lane_pad, sel, axis=1) + f
-        other = gbuf_b if gbuf is gbuf_a else gbuf_a
-        g = jnp.zeros((block, LANES), gbuf.dtype)
-        for l in range(lc):
-            @pl.when(next_base < tile)
-            def _(l=l):
-                gather_level(other, next_base, l)
-
-            @pl.when(prev_base >= 0)
-            def _(l=l):
-                scatter_level(prev_sbuf, prev_base, l)
-
-            if l in mxu:
-                rows_l = _mxu_rows_pc(table_ref, rowsv_ref, base, block,
-                                      l, *mxu[l])
-            else:
-                rows_l = gbuf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-
-        lane_b = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-        gb = jnp.take_along_axis(gup_pad, lvl * 2 + (lane_b & 1), axis=1)
-        gbg = gb * g
-        gfsum = gbg + jnp.take_along_axis(gbg, lane_b ^ 1, axis=1)
-        delev = (jnp.take_along_axis(gfsum, sel1_ref[pl.ds(base, block), :],
-                                     axis=1)
-                 - jnp.take_along_axis(gfsum,
-                                       sel2_ref[pl.ds(base, block), :],
-                                       axis=1))
-        dx_ref[pl.ds(base, block), :] = jnp.dot(
-            delev, wmat_ref[:], preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-        ).astype(dx_ref.dtype)
-
-        for l in range(lc):
-            sbuf[pl.ds(l * block, block), :] = _slab_level(
-                meta, lc, block, lane_pad, bary_pad, gup_pad, lane_b, l)
-
-    for l in range(lc):
-        gather_level(gbuf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(gbuf_a, sbuf_a, b0, b0 + block, b0 - block, sbuf_b)
-        process(gbuf_b, sbuf_b, b0 + block, b0 + 2 * block, b0, sbuf_a)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-    for l in range(lc):
-        scatter_level(sbuf_b, tile - block, l)
-
-
-_MAX_CHUNK = 1 << 19
-_FWD_VERSION = 3      # 3 = software-pipelined fwd; 2 = phase-serial
-_FWD_BLOCK = 1024     # points per pipeline stage (see lotd_brick A/B)
-_MXU_DENSE = False    # fetch/scatter small levels via one-hot MXU matmuls.
-                      # OFF by default since round 4 (see lotd_brick.py:
-                      # kernel dots are f32-exact HIGHEST now; the 6-pass
-                      # one-hot matmul loses to the scalar gathers)
-_MXU_MAX_ROWS = 2048  # row cap (same reasoning as lotd_brick._MXU_MAX_ROWS)
-
-
-def _pad_points(x: Array, tile: int):
-    n = x.shape[0]
-    n_pad = -(-n // tile) * tile
-    if n_pad != n:
-        x = jnp.pad(x, ((0, n_pad - n), (0, 0)), constant_values=0.5)
-    return x, n
-
-
-def _level_groups(meta: PermutoCellMeta):
-    lpc = meta.levels_per_call
-    return [meta.levels[i:i + lpc] for i in range(0, meta.n_levels, lpc)]
-
-
-def _encode_pallas(x: Array, table: Array, meta: PermutoCellMeta,
-                   tile: int = 2048, interpret: bool = False) -> Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import loop_chunks
-
-        def body(xc):
-            return (_encode_pallas(xc, table, meta, tile, interpret),), ()
-
-        (out,), _ = loop_chunks(body, (x,), n0, _MAX_CHUNK,
-                                pad_values=(0.5,))
-        return out
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    outs = []
-    for gi, group in enumerate(_level_groups(meta)):
-        lc = len(group)
-        base = group[0].row_offset
-        g_rows = sum(l.n_rows for l in group)
-        table_g = jax.lax.dynamic_slice_in_dim(table, base, g_rows, axis=0)
-        rows, lane_c, bary_c = _prologue(x, meta, table.dtype, group)
-        rows = rows - base
-        m = jnp.asarray(_reduce_matrix(meta, lc), table.dtype)
-        block = _FWD_BLOCK
-        if _FWD_VERSION == 3 and tile % (2 * block) == 0:
-            kernel = functools.partial(_fwd_kernel_v3, meta, lc, tile,
-                                       block, _mxu_spans(group))
-            scratch = [pltpu.VMEM((lc * block, LANES), table.dtype)
-                       for _ in range(2)]
-            y = pl.pallas_call(
-                kernel,
-                grid=(n_pad // tile,),
-                in_specs=[
-                    pl.BlockSpec((lc, tile), lambda i: (0, i),
-                                 memory_space=pltpu.SMEM),
-                    pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                    pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                    pl.BlockSpec((tile, lc), lambda i: (i, 0)),
-                    pl.BlockSpec(memory_space=pltpu.VMEM),
-                    pl.BlockSpec(memory_space=pltpu.VMEM),
-                ],
-                out_specs=pl.BlockSpec((tile, 2 * lc), lambda i: (i, 0)),
-                out_shape=jax.ShapeDtypeStruct((n_pad, 2 * lc), table.dtype),
-                scratch_shapes=scratch,
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=110 * 1024 * 1024),
-                interpret=interpret,
-            )(rows, lane_c, bary_c, rows.T, table_g, m)
-            outs.append(y[:n])
-            continue
-        kernel = functools.partial(_fwd_kernel, meta, lc, tile)
-        scratch = [pltpu.VMEM((lc * tile, LANES), table.dtype)]
-        y = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((lc, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((tile, 2 * lc), lambda i: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((n_pad, 2 * lc), table.dtype),
-            scratch_shapes=scratch,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(rows, lane_c, bary_c, table_g, m)
-        outs.append(y[:n])
-    return jnp.concatenate(outs, -1) if len(outs) > 1 else outs[0]
-
-
-def _bwd_table_pallas(g_up: Array, x: Array, meta: PermutoCellMeta,
-                      dtype, tile: int = 2048,
-                      interpret: bool = False) -> Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    table_shape = (meta.total_rows, LANES)
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        def body(xc, gc):
-            return (), (_bwd_table_pallas(gc, xc, meta, dtype, tile,
-                                          interpret),)
-
-        _, (out,) = scan_chunks(body, (x, g_up), n0, _MAX_CHUNK,
-                                sum_init=(jnp.zeros(table_shape, dtype),),
-                                pad_values=(0.5,))
-        return out
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    dtab = jnp.zeros(table_shape, dtype)
-    for gi, group in enumerate(_level_groups(meta)):
-        lc = len(group)
-        base = group[0].row_offset
-        g_rows = sum(l.n_rows for l in group)
-        rows, lane_c, bary_c = _prologue(x, meta, dtype, group)
-        rows = rows - base
-        gup_g = jax.lax.dynamic_slice_in_dim(
-            g_up, 2 * gi * meta.levels_per_call, 2 * lc, axis=1)
-        block = _FWD_BLOCK
-        if _FWD_VERSION == 3 and tile % (2 * block) == 0:
-            kernel = functools.partial(_bwd_kernel_v3, meta, lc, tile,
-                                       block, _mxu_spans(group))
-            scratch = [pltpu.VMEM((lc * block, LANES), dtype)
-                       for _ in range(2)]
-            d = pl.pallas_call(
-                kernel,
-                grid=(n_pad // tile,),
-                in_specs=[
-                    pl.BlockSpec((lc, tile), lambda i: (0, i),
-                                 memory_space=pltpu.SMEM),
-                    pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                    pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                    pl.BlockSpec((tile, 2 * lc), lambda i: (i, 0)),
-                    pl.BlockSpec((lc, tile), lambda i: (0, i)),
-                ],
-                out_specs=pl.BlockSpec((g_rows, LANES), lambda i: (0, 0),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((g_rows, LANES), dtype),
-                scratch_shapes=scratch,
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=110 * 1024 * 1024),
-                interpret=interpret,
-            )(rows, lane_c, bary_c, gup_g, rows)
-            dtab = dtab.at[base:base + g_rows].set(d)
-            continue
-        kernel = functools.partial(_bwd_kernel, meta, lc, tile)
-        scratch = [pltpu.VMEM((lc * tile, LANES), dtype)]
-        d = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((lc, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 2 * lc), lambda i: (i, 0)),
-            ],
-            out_specs=pl.BlockSpec((g_rows, LANES), lambda i: (0, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((g_rows, LANES), dtype),
-            scratch_shapes=scratch,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(rows, lane_c, bary_c, gup_g)
-        dtab = dtab.at[base:base + g_rows].set(d)   # groups are disjoint
-    return dtab
-
-
-def _bwd_full_pallas(g_up: Array, x: Array, table: Array,
-                     meta: PermutoCellMeta, tile: int = 2048,
-                     interpret: bool = False) -> Tuple[Array, Array]:
-    """Full backward (dx, dtable) via `_bwd_full_kernel`."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    d = meta.n_dims
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        def body(xc, gc):
-            a, b = _bwd_full_pallas(gc, xc, table, meta, tile, interpret)
-            return (a,), (b,)
-
-        (dx,), (dtab,) = scan_chunks(
-            body, (x, g_up), n0, _MAX_CHUNK,
-            sum_init=(jnp.zeros((meta.total_rows, LANES), table.dtype),),
-            pad_values=(0.5,))
-        return dx, dtab
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    dx_total = jnp.zeros((n_pad, d), table.dtype)
-    dtab = jnp.zeros((meta.total_rows, LANES), table.dtype)
-    for gi, group in enumerate(_level_groups(meta)):
-        lc = len(group)
-        base = group[0].row_offset
-        g_rows = sum(l.n_rows for l in group)
-        table_g = jax.lax.dynamic_slice_in_dim(table, base, g_rows, axis=0)
-        rows, lanes_l, barys, sel1s, sel2s = [], [], [], [], []
-        for li, level in enumerate(group):
-            r, l, b, rank = _level_rows_lanes_bary(x, level, meta)
-            rows.append(r)
-            lanes_l.append(l)
-            barys.append(b)
-            s1, s2 = _dx_selectors(meta, rank, li)
-            pad = meta.vp - (d + 1)
-            if pad > 0:
-                s1 = jnp.pad(s1, ((0, 0), (0, pad)))
-                s2 = jnp.pad(s2, ((0, 0), (0, pad)))
-            sel1s.append(s1)
-            sel2s.append(s2)
-        row_arr = jnp.stack(rows) - base
-        lane_c = jnp.concatenate(lanes_l, -1)
-        bary_c = jnp.concatenate(barys, -1).astype(table.dtype)
-        sel1 = jnp.pad(jnp.concatenate(sel1s, -1),
-                       ((0, 0), (0, LANES - lc * meta.vp)))
-        sel2 = jnp.pad(jnp.concatenate(sel2s, -1),
-                       ((0, 0), (0, LANES - lc * meta.vp)))
-        gup_g = jax.lax.dynamic_slice_in_dim(
-            g_up, 2 * gi * meta.levels_per_call, 2 * lc, axis=1)
-        wmat = jnp.asarray(_dx_weight_matrix(meta, group), table.dtype)
-        block = _FWD_BLOCK
-        if _FWD_VERSION == 3 and tile % (2 * block) == 0:
-            kernel = functools.partial(_bwd_full_kernel_v3, meta, lc, tile,
-                                       block, _mxu_spans(group))
-            scratch = [pltpu.VMEM((lc * block, LANES), table.dtype)
-                       for _ in range(4)]
-            dtab_g, dx_g = pl.pallas_call(
-                kernel,
-                grid=(n_pad // tile,),
-                in_specs=[
-                    pl.BlockSpec((lc, tile), lambda i: (0, i),
-                                 memory_space=pltpu.SMEM),
-                    pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                    pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                    pl.BlockSpec((tile, 2 * lc), lambda i: (i, 0)),
-                    pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                    pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                    pl.BlockSpec(memory_space=pltpu.VMEM),
-                    pl.BlockSpec((tile, lc), lambda i: (i, 0)),
-                    pl.BlockSpec((lc, tile), lambda i: (0, i)),
-                    pl.BlockSpec(memory_space=pltpu.VMEM),
-                ],
-                out_specs=(
-                    pl.BlockSpec((g_rows, LANES), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((tile, d), lambda i: (i, 0)),
-                ),
-                out_shape=(
-                    jax.ShapeDtypeStruct((g_rows, LANES), table.dtype),
-                    jax.ShapeDtypeStruct((n_pad, d), table.dtype),
-                ),
-                scratch_shapes=scratch,
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=110 * 1024 * 1024),
-                interpret=interpret,
-            )(row_arr, lane_c, bary_c, gup_g, sel1, sel2, wmat,
-              row_arr.T, row_arr, table_g)
-            dtab = dtab.at[base:base + g_rows].set(dtab_g)
-            dx_total = dx_total + dx_g
-            continue
-        kernel = functools.partial(_bwd_full_kernel, meta, lc, tile)
-        scratch = [pltpu.VMEM((lc * tile, LANES), table.dtype)]
-        dtab_g, dx_g = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((lc, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 2 * lc), lambda i: (i, 0)),
-                pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=(
-                pl.BlockSpec((g_rows, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, d), lambda i: (i, 0)),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct((g_rows, LANES), table.dtype),
-                jax.ShapeDtypeStruct((n_pad, d), table.dtype),
-            ),
-            scratch_shapes=scratch,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(row_arr, lane_c, bary_c, gup_g, sel1, sel2, wmat, table_g)
-        dtab = dtab.at[base:base + g_rows].set(dtab_g)
-        dx_total = dx_total + dx_g
-    return dx_total[:n], dtab
-
-
-# ----------------------------------------------------------------- public ops
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def permuto_cell_encode(x: Array, table: Array,
-                        meta: PermutoCellMeta) -> Array:
-    """Cell-packed permuto encode: Pallas on TPU, XLA elsewhere. Backward:
-    Pallas dL/dtable scatter + XLA dL/dx (the x-gradient re-derives bary
-    jacobians; kernelizing it is a follow-up — reference permuto.py:168
-    PermutoEncBwdInputFunction)."""
-    if _use_pallas():
-        return _encode_pallas(x, table, meta)
-    return permuto_cell_encode_xla(x, table, meta)
-
-
-def _enc_fwd(x, table, meta):
-    return permuto_cell_encode(x, table, meta), (x, table)
-
-
-def _enc_bwd(meta, res, g):
-    x, table = res
-    if _use_pallas():
-        d_x, d_tab = _bwd_full_pallas(g, x, table, meta)
-        return d_x, d_tab
-    _, vjp_fn = jax.vjp(
-        lambda xx, tt: permuto_cell_encode_xla(xx, tt, meta), x, table)
-    return vjp_fn(g)
-
-
-permuto_cell_encode.defvjp(_enc_fwd, _enc_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def permuto_cell_encode_frozen_x(x: Array, table: Array,
-                                 meta: PermutoCellMeta) -> Array:
-    """Encode treating x as constant: the backward runs ONLY the Pallas
-    table scatter (no bary-jacobian pass) — the dynamic/conditional
-    radiance-field training fast path (positions carry no gradient)."""
-    if _use_pallas():
-        return _encode_pallas(x, table, meta)
-    return permuto_cell_encode_xla(x, table, meta)
-
-
-def _fz_fwd(x, table, meta):
-    return permuto_cell_encode_frozen_x(x, table, meta), (x, table)
-
-
-def _fz_bwd(meta, res, g):
-    x, table = res
-    if _use_pallas():
-        d_tab = _bwd_table_pallas(g, x, meta, table.dtype)
-        return jnp.zeros_like(x), d_tab
-    _, vjp_fn = jax.vjp(
-        lambda tt: permuto_cell_encode_xla(x, tt, meta), table)
-    return jnp.zeros_like(x), vjp_fn(g)[0]
-
-
-permuto_cell_encode_frozen_x.defvjp(_fz_fwd, _fz_bwd)
-
-
-# ------------------------------------------------------------- nablas (dydx)
-def _dydx_kernel_v3(meta: PermutoCellMeta, lc: int, tile: int, block: int,
-                    spans: tuple,
-                    rows_ref, lane_ref, bary_ref, gup_ref,
-                    sel1_ref, sel2_ref, wmat_ref, rowsv_ref, table_ref,
-                    dx_ref, buf_a, buf_b):
-    """dL/dx only — the `_bwd_full_kernel_v3` dx math without the dtable
-    slab/scatter (the eikonal forward needs just the nablas; reference
-    permuto.py:168 PermutoEncBwdInputFunction forward)."""
-    from jax.experimental import pallas as pl
-
-    nblk = tile // block
-    assert nblk % 2 == 0
-    stride = meta.stride
-    shift = stride.bit_length() - 1
-    vp = meta.vp
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> shift, lc - 1)
-    q = lane_i & (stride - 1)
-    kv = q >> 1
-    f = q & 1
-    sel = jnp.minimum(lvl * vp + kv, LANES - 1)
-    mxu = {li: (start, k_pad) for li, start, k_pad in spans}
-
-    def gather_level(buf, base, l):
-        if l in mxu:
-            return
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    def process(buf, base, next_base):
-        lane_pad = jnp.pad(lane_ref[pl.ds(base, block), :],
-                           ((0, 0), (0, LANES - lane_ref.shape[1])))
-        gup_pad = jnp.pad(gup_ref[pl.ds(base, block), :],
-                          ((0, 0), (0, LANES - gup_ref.shape[1])))
-        wanted = jnp.take_along_axis(lane_pad, sel, axis=1) + f
-        other = buf_b if buf is buf_a else buf_a
-        g = jnp.zeros((block, LANES), buf.dtype)
-        for l in range(lc):
-            @pl.when(next_base < tile)
-            def _(l=l):
-                gather_level(other, next_base, l)
-
-            if l in mxu:
-                rows_l = _mxu_rows_pc(table_ref, rowsv_ref, base, block,
-                                      l, *mxu[l])
-            else:
-                rows_l = buf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-
-        gb = jnp.take_along_axis(gup_pad, lvl * 2 + (lane_i & 1), axis=1)
-        gbg = gb * g
-        gfsum = gbg + jnp.take_along_axis(gbg, lane_i ^ 1, axis=1)
-        delev = (jnp.take_along_axis(gfsum, sel1_ref[pl.ds(base, block), :],
-                                     axis=1)
-                 - jnp.take_along_axis(gfsum,
-                                       sel2_ref[pl.ds(base, block), :],
-                                       axis=1))
-        dx_ref[pl.ds(base, block), :] = jnp.dot(
-            delev, wmat_ref[:], preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-        ).astype(dx_ref.dtype)
-
-    for l in range(lc):
-        gather_level(buf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(buf_a, b0, b0 + block)
-        process(buf_b, b0 + block, b0 + 2 * block)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-
-
-def _dydx_pallas(g_up: Array, x: Array, table: Array,
-                 meta: PermutoCellMeta, tile: int = 2048,
-                 interpret: bool = False) -> Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    d = meta.n_dims
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        def body(xc, gc):
-            return (_dydx_pallas(gc, xc, table, meta, tile,
-                                 interpret),), ()
-
-        (dx,), _ = scan_chunks(body, (x, g_up), n0, _MAX_CHUNK,
-                               pad_values=(0.5,))
-        return dx
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    dx_total = jnp.zeros((n_pad, d), table.dtype)
-    for gi, group in enumerate(_level_groups(meta)):
-        lc = len(group)
-        base = group[0].row_offset
-        g_rows = sum(l.n_rows for l in group)
-        table_g = jax.lax.dynamic_slice_in_dim(table, base, g_rows, axis=0)
-        rows, lanes_l, barys, sel1s, sel2s = [], [], [], [], []
-        for li, level in enumerate(group):
-            r, l, b, rank = _level_rows_lanes_bary(x, level, meta)
-            rows.append(r)
-            lanes_l.append(l)
-            barys.append(b)
-            s1, s2 = _dx_selectors(meta, rank, li)
-            pad = meta.vp - (d + 1)
-            if pad > 0:
-                s1 = jnp.pad(s1, ((0, 0), (0, pad)))
-                s2 = jnp.pad(s2, ((0, 0), (0, pad)))
-            sel1s.append(s1)
-            sel2s.append(s2)
-        row_arr = jnp.stack(rows) - base
-        lane_c = jnp.concatenate(lanes_l, -1)
-        bary_c = jnp.concatenate(barys, -1).astype(table.dtype)
-        sel1 = jnp.pad(jnp.concatenate(sel1s, -1),
-                       ((0, 0), (0, LANES - lc * meta.vp)))
-        sel2 = jnp.pad(jnp.concatenate(sel2s, -1),
-                       ((0, 0), (0, LANES - lc * meta.vp)))
-        gup_g = jax.lax.dynamic_slice_in_dim(
-            g_up, 2 * gi * meta.levels_per_call, 2 * lc, axis=1)
-        wmat = jnp.asarray(_dx_weight_matrix(meta, group), table.dtype)
-        block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-        kernel = functools.partial(_dydx_kernel_v3, meta, lc, tile, block,
-                                   _mxu_spans(group))
-        dx_g = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((lc, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 2 * lc), lambda i: (i, 0)),
-                pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, lc), lambda i: (i, 0)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((tile, d), lambda i: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((n_pad, d), table.dtype),
-            scratch_shapes=[pltpu.VMEM((lc * block, LANES), table.dtype)
-                            for _ in range(2)],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(row_arr, lane_c, bary_c, gup_g, sel1, sel2, wmat,
-          row_arr.T, table_g)
-        dx_total = dx_total + dx_g
-    return dx_total[:n]
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def permuto_cell_nablas(g_up: Array, x: Array, table: Array,
-                        meta: PermutoCellMeta) -> Array:
-    """Differentiable nablas for the cell layout: J_enc(x)ᵀ·g_up runs the
-    dedicated Pallas kernel on TPU (eikonal training no longer pays the
-    XLA-formulated encode for its nablas forward — reference
-    permuto.py:168 PermutoEncBwdInputFunction). The backward (2nd order)
-    runs the any-order XLA formulation: within a simplex the barycentric
-    weights are affine in x, so the cotangents are exactly linear in
-    (g_up, table) and autodiff handles them."""
-    if _use_pallas():
-        return _dydx_pallas(g_up, x, table, meta)
-    _, vjp_fn = jax.vjp(lambda xx: permuto_cell_encode_xla(xx, table, meta),
-                        x)
-    return vjp_fn(g_up)[0]
-
-
-def _nab_fwd(g_up, x, table, meta):
-    return permuto_cell_nablas(g_up, x, table, meta), (g_up, x, table)
-
-
-def _nab_bwd(meta, res, gg):
-    g_up, x, table = res
-
-    def nab_fn(gu, xx, tt):
-        _, vjp_fn = jax.vjp(
-            lambda x_: permuto_cell_encode_xla(x_, tt, meta), xx)
-        return vjp_fn(gu)[0]
-
-    _, vjp2 = jax.vjp(nab_fn, g_up, x, table)
-    return vjp2(gg)
-
-
-permuto_cell_nablas.defvjp(_nab_fwd, _nab_bwd)

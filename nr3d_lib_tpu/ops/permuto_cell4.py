@@ -1,57 +1,30 @@
-"""bf16-packed F=4 cell permuto encoding — 4 feats/vertex at one gather.
+"""Cell permuto encoding with 4 bf16-quantized feats/vertex slot.
 
-The cell-packed permuto path (`ops/permuto_cell.py`) is gather-issue
-bound like the brick path; this variant applies the bf16 bit-packing of
-`ops/lotd_brick4.py` to the simplex lattice: each 128-lane f32 row packs
-two bf16 features per lane (4 feats/vertex-slot), so an encoding with
-the same total feature count needs HALF the levels — and half the scalar
-issues per point. This is the main lever for DYNAMIC scenes: the
-dynamic/conditional field families encode 4D (x,t) permuto lattices.
+Applies the 4-feature rows of `ops/lotd_brick4.py` to the simplex lattice
+of `ops/permuto_cell.py`: an encoding with the same total feature count
+needs half the levels. The dynamic/conditional field families encode 4D
+(x,t) permuto lattices with it.
 
-Row layout is IDENTICAL to the F=2 cell layout (cells_per_row, hashing,
+Row layout is identical to the F=2 cell layout (cells_per_row, hashing,
 and the per-point lane indices from `_level_rows_lanes_bary` are reused
-verbatim — a packed lane holds the feature PAIR the F=2 lane held a
-single feature of). Unpacked (param) space: f32 [rows, 256], lane
-u = 2·packed_lane + half. Packed bits flow only through gathers/selects
-(see lotd_brick4.py's denormal-flush analysis — no MXU on packed bits);
-unpack is shift + `pltpu.bitcast`, bit-exact.
-
-Feature parity with the F=2 cell path: fwd + bwd (frozen and full, incl.
-dL/dx through the elevation Jacobian); higher-order autodiff routes to
-the XLA formulation (as F=2 does).
+verbatim). Param space: f32 [rows, 256], lane u = 2·(F=2 lane) + half.
 """
 
 from __future__ import annotations
 
-import functools
-import math
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from nr3d_lib_tpu.ops.lotd_brick import _copy_rows, _scatter_rows
-
-from nr3d_lib_tpu.ops.lotd_brick4 import _quantize4, pack_table4
-from nr3d_lib_tpu.ops.permuto_cell import (LANES, PermutoCellMeta,
-                                           _dx_weight_matrix,
+from nr3d_lib_tpu.ops.lotd_brick4 import _quantize4
+from nr3d_lib_tpu.ops.permuto_cell import (PermutoCellMeta,
                                            _level_rows_lanes_bary,
-                                           _pad_points, _prologue,
                                            make_permuto_cell_meta)
 
-__all__ = ["make_permuto_cell4_meta", "permuto_cell4_encode",
-           "permuto_cell4_encode_frozen_x", "permuto_cell4_encode_xla"]
+__all__ = ["make_permuto_cell4_meta", "permuto_cell4_encode_xla"]
 
 Array = jax.Array
-
-def _B_prec():
-    from nr3d_lib_tpu.ops import lotd_brick as _b
-    return _b._DOT_PRECISION
-
-
-_MAX_CHUNK = 1 << 19
-_FWD_BLOCK = 1024
 
 
 def make_permuto_cell4_meta(n_dims: int, res_list: Sequence,
@@ -62,27 +35,11 @@ def make_permuto_cell4_meta(n_dims: int, res_list: Sequence,
                                   auto_dense)
 
 
-def _stride4(meta: PermutoCellMeta) -> int:
-    """Packed-lane stride per level in the extraction tile: (d+1) vertices
-    × 4 feats, rounded up to a power of two."""
-    return 1 << math.ceil(math.log2((meta.n_dims + 1) * 4))
-
-
-def _lpc4(meta: PermutoCellMeta) -> int:
-    return LANES // _stride4(meta)
-
-
-def _level_groups4(meta: PermutoCellMeta):
-    lpc = _lpc4(meta)
-    return [meta.levels[i:i + lpc] for i in range(0, meta.n_levels, lpc)]
-
-
-# ------------------------------------------------------------ XLA reference
+# -------------------------------------------------------------------- encode
 def permuto_cell4_encode_xla(x: Array, table: Array, meta: PermutoCellMeta
                              ) -> Array:
-    """table: UNPACKED [total_rows, 256] (lane u = 2·packed + half) →
-    [N, 4L]; values bf16-quantized (straight-through) to match the packed
-    kernels exactly."""
+    """x [N,d] in [0,1] × table [total_rows, 256] (lane u = 2·(F=2 lane) +
+    half) → [N, 4L]; values bf16-quantized (straight-through)."""
     tq = _quantize4(table)
     outs = []
     for level in meta.levels:
@@ -93,612 +50,3 @@ def permuto_cell4_encode_xla(x: Array, table: Array, meta: PermutoCellMeta
             vals = jnp.take_along_axis(rows, 2 * lane + f, axis=1)
             outs.append(jnp.sum(w * vals, -1))
     return jnp.stack(outs, axis=-1)
-
-
-# ------------------------------------------------------------ lane patterns
-def _reduce_matrix4(meta: PermutoCellMeta, lc: int) -> np.ndarray:
-    """[128, 4·lc]: lane l·stride4 + k·4 + f sums into col l·4+f (zero for
-    padded vertices / unused lanes)."""
-    m = np.zeros((LANES, 4 * lc), np.float32)
-    s4 = _stride4(meta)
-    for lane in range(lc * s4):
-        q = lane % s4
-        k = q >> 2
-        if k <= meta.n_dims:
-            m[lane, (lane // s4) * 4 + (q & 3)] = 1.0
-    return m
-
-
-def _unpack_bits(g: Array, half: Array) -> Array:
-    from jax.experimental.pallas import tpu as pltpu
-
-    u = pltpu.bitcast(g, jnp.uint32)
-    lo = pltpu.bitcast(u << 16, jnp.float32)
-    hi = pltpu.bitcast(u & jnp.uint32(0xFFFF0000), jnp.float32)
-    return jnp.where(half > 0, hi, lo)
-
-
-def _dx_selectors4(meta: PermutoCellMeta, rank: Array, li: int
-                   ) -> Tuple[Array, Array]:
-    """F=4-tile lane indices of the first feat lane of the rank-selected
-    vertices (cf. permuto_cell._dx_selectors; here vertex t sits at
-    li·stride4 + t·4)."""
-    d = meta.n_dims
-    t1 = d - rank
-    t2 = jnp.where(rank == 0, 0, d + 1 - rank)
-    base = li * _stride4(meta)
-    return (base + t1 * 4).astype(jnp.int32), \
-        (base + t2 * 4).astype(jnp.int32)
-
-
-def _halfplane_to_natural(dtab_hp: Array) -> Array:
-    """[rows, 256] half-plane layout → natural unpacked (u = 2p + half)."""
-    u = np.arange(256)
-    src = (u & 1) * LANES + (u >> 1)
-    return dtab_hp[:, jnp.asarray(src, jnp.int32)]
-
-
-# -------------------------------------------------------------- fwd kernel
-def _fwd4_kernel_v3(meta: PermutoCellMeta, lc: int, tile: int, block: int,
-                    rows_ref, lane_ref, bary_ref, table_ref, m_ref,
-                    out_ref, buf_a, buf_b):
-    """Software-pipelined F=4 forward (A/B scheme of permuto_cell
-    `_fwd_kernel_v3`, with the packed unpack)."""
-    from jax.experimental import pallas as pl
-
-    nblk = tile // block
-    assert nblk % 2 == 0
-    s4 = _stride4(meta)
-    shift = s4.bit_length() - 1
-    vp = meta.vp
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> shift, lc - 1)
-    q = lane_i & (s4 - 1)
-    kv = q >> 2
-    f = q & 3
-    half = f & 1
-    sel = jnp.minimum(lvl * vp + kv, LANES - 1)
-
-    def gather_level(buf, base, l):
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    def process(buf, base, next_base):
-        lane_blk = lane_ref[pl.ds(base, block), :]
-        bary_blk = bary_ref[pl.ds(base, block), :]
-        lane_pad = jnp.pad(lane_blk,
-                           ((0, 0), (0, LANES - lane_blk.shape[1])))
-        bary_pad = jnp.pad(bary_blk,
-                           ((0, 0), (0, LANES - bary_blk.shape[1])))
-        wanted = jnp.take_along_axis(lane_pad, sel, axis=1) + (f >> 1)
-        w = jnp.take_along_axis(bary_pad, sel, axis=1)
-        other = buf_b if buf is buf_a else buf_a
-        g = jnp.zeros((block, LANES), buf.dtype)
-        for l in range(lc):
-            @pl.when(next_base < tile)
-            def _(l=l):
-                gather_level(other, next_base, l)
-
-            rows_l = buf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-        gval = _unpack_bits(g, half)
-        out_ref[pl.ds(base, block), :] = jnp.dot(
-            gval * w, m_ref[:], preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-        ).astype(out_ref.dtype)
-
-    for l in range(lc):
-        gather_level(buf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(buf_a, b0, b0 + block)
-        process(buf_b, b0 + block, b0 + 2 * block)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-
-
-# ------------------------------------------------------------- bwd kernels
-def _slab_level4(meta, block, lane_pad, bary_pad, gup_pad, lane_i, l, hp):
-    """Half-plane hp scatter slab for level l: target packed lane
-    lane_k + f2 receives bary_k · gup[4l + 2·f2 + hp]."""
-    vp = meta.vp
-    d = meta.n_dims
-    slab = jnp.zeros((block, LANES), bary_pad.dtype)
-    g = [jnp.take_along_axis(
-        gup_pad, jnp.full((block, LANES), 4 * l + 2 * f2 + hp, jnp.int32),
-        axis=1) for f2 in range(2)]
-    for k in range(d + 1):
-        sel = jnp.full((block, LANES), l * vp + k, jnp.int32)
-        lk = jnp.take_along_axis(lane_pad, sel, axis=1)
-        bk = jnp.take_along_axis(bary_pad, sel, axis=1)
-        slab = slab + jnp.where(lane_i == lk, bk * g[0], 0.0)
-        slab = slab + jnp.where(lane_i == lk + 1, bk * g[1], 0.0)
-    return slab
-
-
-def _bwd4_kernel_v3(meta: PermutoCellMeta, lc: int, tile: int, block: int,
-                    need_dx: bool,
-                    rows_ref, lane_ref, bary_ref, gup_ref,
-                    sel1_ref, sel2_ref, wmat_ref, table_ref,
-                    dtab_lo_ref, dtab_hi_ref, dx_ref, gbuf_a, gbuf_b,
-                    sbuf_a, sbuf_b):
-    """Software-pipelined F=4 backward: dL/dtable into half-planes
-    (2×[rows, 128], lo and hi as SEPARATE refs — Mosaic rejects
-    dynamic-row loads with a column offset on 256-wide memrefs), optional
-    dL/dx via the elevation-Jacobian matmul (scheme of permuto_cell
-    `_bwd_full_kernel_v3`)."""
-    from jax.experimental import pallas as pl
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_lo_ref[:, :] = jnp.zeros_like(dtab_lo_ref)
-        dtab_hi_ref[:, :] = jnp.zeros_like(dtab_hi_ref)
-
-    nblk = tile // block
-    assert nblk % 2 == 0
-    s4 = _stride4(meta)
-    shift = s4.bit_length() - 1
-    vp = meta.vp
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> shift, lc - 1)
-    q = lane_i & (s4 - 1)
-    kv = q >> 2
-    f = q & 3
-    half = f & 1
-    sel = jnp.minimum(lvl * vp + kv, LANES - 1)
-
-    def gather_level(buf, base, l):
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    def scatter_level(sbuf, base, l):
-        _scatter_rows(dtab_lo_ref, sbuf, l * (2 * block),
-                      lambda j: rows_ref[l, base + j], block)
-        _scatter_rows(dtab_hi_ref, sbuf, l * (2 * block) + block,
-                      lambda j: rows_ref[l, base + j], block)
-
-    def process(gbuf, sbuf, base, next_base, prev_base, prev_sbuf):
-        lane_pad = jnp.pad(lane_ref[pl.ds(base, block), :],
-                           ((0, 0), (0, LANES - lane_ref.shape[1])))
-        bary_pad = jnp.pad(bary_ref[pl.ds(base, block), :],
-                           ((0, 0), (0, LANES - bary_ref.shape[1])))
-        gup_pad = jnp.pad(gup_ref[pl.ds(base, block), :],
-                          ((0, 0), (0, LANES - gup_ref.shape[1])))
-        wanted = jnp.take_along_axis(lane_pad, sel, axis=1) + (f >> 1)
-        other = gbuf_b if gbuf is gbuf_a else gbuf_a
-        g = jnp.zeros((block, LANES), gbuf.dtype)
-        for l in range(lc):
-            if need_dx:
-                @pl.when(next_base < tile)
-                def _(l=l):
-                    gather_level(other, next_base, l)
-
-            @pl.when(prev_base >= 0)
-            def _(l=l):
-                scatter_level(prev_sbuf, prev_base, l)
-
-            if need_dx:
-                rows_l = gbuf[pl.ds(l * block, block), :]
-                g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-                g = jnp.where(lvl == l, g_l, g)
-
-        if need_dx:
-            gval = _unpack_bits(g, half)
-            gb = jnp.take_along_axis(gup_pad, lvl * 4 + f, axis=1)
-            gbg = gb * gval
-            # sum the vertex's 4 feat lanes (xor tree over the 4-lane quad)
-            pair = gbg + jnp.take_along_axis(gbg, lane_i ^ 1, axis=1)
-            gfsum = pair + jnp.take_along_axis(pair, lane_i ^ 2, axis=1)
-            delev = (jnp.take_along_axis(
-                gfsum, sel1_ref[pl.ds(base, block), :], axis=1)
-                - jnp.take_along_axis(
-                    gfsum, sel2_ref[pl.ds(base, block), :], axis=1))
-            dx_ref[pl.ds(base, block), :] = jnp.dot(
-                delev, wmat_ref[:], preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-            ).astype(dx_ref.dtype)
-        else:
-            dx_ref[pl.ds(base, block), :] = jnp.zeros(
-                (block, dx_ref.shape[1]), dx_ref.dtype)
-
-        for l in range(lc):
-            for hp in range(2):
-                sbuf[pl.ds(l * (2 * block) + hp * block, block), :] = \
-                    _slab_level4(meta, block, lane_pad, bary_pad, gup_pad,
-                                 lane_i, l, hp)
-
-    if need_dx:
-        for l in range(lc):
-            gather_level(gbuf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(gbuf_a, sbuf_a, b0, b0 + block, b0 - block, sbuf_b)
-        process(gbuf_b, sbuf_b, b0 + block, b0 + 2 * block, b0, sbuf_a)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-    for l in range(lc):
-        scatter_level(sbuf_b, tile - block, l)
-
-
-# ---------------------------------------------------------------- plumbing
-def _prologue4(x: Array, meta: PermutoCellMeta, dtype, group):
-    """F=2 prologue (lane indices are shared) + F=4 dx selectors padded to
-    the wmat lane layout (lane = li·vp + i)."""
-    rows, lane_c, bary_c = _prologue(x, meta, dtype, group)
-    vp = meta.vp
-    s1_cols, s2_cols = [], []
-    for li, level in enumerate(group):
-        _, _, _, rank = _level_rows_lanes_bary(x, level, meta)
-        s1, s2 = _dx_selectors4(meta, rank, li)            # [N, d+1]
-        d1 = vp - s1.shape[1]
-        s1_cols.append(jnp.pad(s1, ((0, 0), (0, d1))))
-        s2_cols.append(jnp.pad(s2, ((0, 0), (0, d1))))
-    sel1 = jnp.concatenate(s1_cols, -1).astype(jnp.int32)   # [N, lc·vp]
-    sel2 = jnp.concatenate(s2_cols, -1).astype(jnp.int32)
-    pad = LANES - sel1.shape[1]
-    sel1 = jnp.pad(sel1, ((0, 0), (0, pad)))
-    sel2 = jnp.pad(sel2, ((0, 0), (0, pad)))
-    return rows, lane_c, bary_c, sel1, sel2
-
-
-def _encode4_pallas(x: Array, table_unpacked: Array, meta: PermutoCellMeta,
-                    tile: int = 2048, interpret: bool = False) -> Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import loop_chunks
-
-        def body(xc):
-            return (_encode4_pallas(xc, table_unpacked, meta, tile,
-                                    interpret),), ()
-
-        (out,), _ = loop_chunks(body, (x,), n0, _MAX_CHUNK,
-                                pad_values=(0.5,))
-        return out
-    table = pack_table4(table_unpacked)
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    outs = []
-    for group in _level_groups4(meta):
-        lc = len(group)
-        base = group[0].row_offset
-        g_rows = sum(l.n_rows for l in group)
-        table_g = jax.lax.dynamic_slice_in_dim(table, base, g_rows, axis=0)
-        rows, lane_c, bary_c = _prologue(x, meta, jnp.float32, group)
-        rows = rows - base
-        m = jnp.asarray(_reduce_matrix4(meta, lc), jnp.float32)
-        block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-        kernel = functools.partial(_fwd4_kernel_v3, meta, lc, tile, block)
-        y = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((lc, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((tile, 4 * lc), lambda i: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((n_pad, 4 * lc), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((lc * block, LANES), jnp.float32)
-                            for _ in range(2)],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(rows, lane_c, bary_c, table_g, m)
-        outs.append(y[:n])
-    return jnp.concatenate(outs, -1) if len(outs) > 1 else outs[0]
-
-
-def _bwd4_pallas(x: Array, table_unpacked: Array, g_up: Array,
-                 meta: PermutoCellMeta, tile: int = 2048,
-                 interpret: bool = False, need_dx: bool = True
-                 ) -> Tuple[Array, Array]:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        def body(xc, gc):
-            dx_i, dt_i = _bwd4_pallas(xc, table_unpacked, gc, meta, tile,
-                                      interpret, need_dx)
-            return (dx_i,), (dt_i,)
-
-        (dx,), (dtab,) = scan_chunks(
-            body, (x, g_up), n0, _MAX_CHUNK,
-            sum_init=(jnp.zeros_like(table_unpacked),),
-            pad_values=(0.5,))
-        return dx, dtab
-    table = pack_table4(table_unpacked)
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    d = meta.n_dims
-    dx_total = jnp.zeros((n_pad, d), jnp.float32)
-    dtab_total = jnp.zeros_like(table_unpacked)
-    col = 0
-    for group in _level_groups4(meta):
-        lc = len(group)
-        base = group[0].row_offset
-        g_rows = sum(l.n_rows for l in group)
-        table_g = jax.lax.dynamic_slice_in_dim(table, base, g_rows, axis=0)
-        rows, lane_c, bary_c, sel1, sel2 = _prologue4(
-            x, meta, jnp.float32, group)
-        rows = rows - base
-        gup_g = g_up[:, col:col + 4 * lc]
-        col += 4 * lc
-        wmat = jnp.asarray(_dx_weight_matrix(meta, group), jnp.float32)
-        block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-        kernel = functools.partial(_bwd4_kernel_v3, meta, lc, tile, block,
-                                   need_dx)
-        dtab_lo, dtab_hi, dx_g = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((lc, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 4 * lc), lambda i: (i, 0)),
-                pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=(
-                pl.BlockSpec((g_rows, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((g_rows, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, d), lambda i: (i, 0)),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct((g_rows, LANES), jnp.float32),
-                jax.ShapeDtypeStruct((g_rows, LANES), jnp.float32),
-                jax.ShapeDtypeStruct((n_pad, d), jnp.float32),
-            ),
-            scratch_shapes=[pltpu.VMEM((lc * block, LANES), jnp.float32)
-                            for _ in range(2)] +
-                           [pltpu.VMEM((lc * 2 * block, LANES), jnp.float32)
-                            for _ in range(2)],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(rows, lane_c, bary_c, gup_g, sel1, sel2, wmat, table_g)
-        dtab_hp = jnp.concatenate([dtab_lo, dtab_hi], axis=1)
-        dx_total = dx_total + dx_g
-        dtab_total = jax.lax.dynamic_update_slice_in_dim(
-            dtab_total,
-            dtab_total[base:base + g_rows] + _halfplane_to_natural(dtab_hp),
-            base, axis=0)
-    return dx_total[:n], dtab_total
-
-
-# ---------------------------------------------------------------- custom vjp
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def permuto_cell4_encode(x: Array, table: Array, meta: PermutoCellMeta
-                         ) -> Array:
-    """F=4 packed cell permuto: [N,d] × unpacked [rows,256] → [N, 4L]."""
-    if jax.default_backend() == "tpu":
-        return _encode4_pallas(x, table, meta)
-    return permuto_cell4_encode_xla(x, table, meta)
-
-
-def _fwd4(x, table, meta):
-    return permuto_cell4_encode(x, table, meta), (x, table)
-
-
-def _bwd4(meta, res, g):
-    x, table = res
-    if jax.default_backend() == "tpu":
-        return _bwd4_pallas(x, table, g, meta)
-    _, vjp_fn = jax.vjp(
-        lambda xx, tt: permuto_cell4_encode_xla(xx, tt, meta), x, table)
-    return vjp_fn(g)
-
-
-permuto_cell4_encode.defvjp(_fwd4, _bwd4)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def permuto_cell4_encode_frozen_x(x: Array, table: Array,
-                                  meta: PermutoCellMeta) -> Array:
-    """Positions carry no gradient: the backward skips the table gather
-    and the dx math entirely."""
-    x = jax.lax.stop_gradient(x)
-    if jax.default_backend() == "tpu":
-        return _encode4_pallas(x, table, meta)
-    return permuto_cell4_encode_xla(x, table, meta)
-
-
-def _fwd4_frozen(x, table, meta):
-    return permuto_cell4_encode_frozen_x(x, table, meta), (x, table)
-
-
-def _bwd4_frozen(meta, res, g):
-    x, table = res
-    if jax.default_backend() == "tpu":
-        _, dtab = _bwd4_pallas(x, table, g, meta, need_dx=False)
-        return jnp.zeros_like(x), dtab
-    _, vjp_fn = jax.vjp(
-        lambda tt: permuto_cell4_encode_xla(x, tt, meta), table)
-    return jnp.zeros_like(x), vjp_fn(g)[0]
-
-
-permuto_cell4_encode_frozen_x.defvjp(_fwd4_frozen, _bwd4_frozen)
-
-
-# ------------------------------------------------------------- nablas (dydx)
-def _dydx4_kernel_v3(meta: PermutoCellMeta, lc: int, tile: int, block: int,
-                     rows_ref, lane_ref, bary_ref, gup_ref,
-                     sel1_ref, sel2_ref, wmat_ref, table_ref,
-                     dx_ref, buf_a, buf_b):
-    """dL/dx only for the packed F=4 cells (the `_bwd4_kernel_v3` dx math
-    without the dtable slab/scatter)."""
-    from jax.experimental import pallas as pl
-
-    nblk = tile // block
-    assert nblk % 2 == 0
-    s4 = _stride4(meta)
-    shift = s4.bit_length() - 1
-    vp = meta.vp
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    lvl = jnp.minimum(lane_i >> shift, lc - 1)
-    q = lane_i & (s4 - 1)
-    kv = q >> 2
-    f = q & 3
-    half = f & 1
-    sel = jnp.minimum(lvl * vp + kv, LANES - 1)
-
-    def gather_level(buf, base, l):
-        _copy_rows(buf, l * block, table_ref,
-                   lambda j: rows_ref[l, base + j], block)
-
-    def process(buf, base, next_base):
-        lane_pad = jnp.pad(lane_ref[pl.ds(base, block), :],
-                           ((0, 0), (0, LANES - lane_ref.shape[1])))
-        gup_pad = jnp.pad(gup_ref[pl.ds(base, block), :],
-                          ((0, 0), (0, LANES - gup_ref.shape[1])))
-        wanted = jnp.take_along_axis(lane_pad, sel, axis=1) + (f >> 1)
-        other = buf_b if buf is buf_a else buf_a
-        g = jnp.zeros((block, LANES), buf.dtype)
-        for l in range(lc):
-            @pl.when(next_base < tile)
-            def _(l=l):
-                gather_level(other, next_base, l)
-
-            rows_l = buf[pl.ds(l * block, block), :]
-            g_l = jnp.take_along_axis(rows_l, wanted, axis=1)
-            g = jnp.where(lvl == l, g_l, g)
-        gval = _unpack_bits(g, half)
-        gb = jnp.take_along_axis(gup_pad, lvl * 4 + f, axis=1)
-        gbg = gb * gval
-        pair = gbg + jnp.take_along_axis(gbg, lane_i ^ 1, axis=1)
-        gfsum = pair + jnp.take_along_axis(pair, lane_i ^ 2, axis=1)
-        delev = (jnp.take_along_axis(gfsum, sel1_ref[pl.ds(base, block), :],
-                                     axis=1)
-                 - jnp.take_along_axis(gfsum,
-                                       sel2_ref[pl.ds(base, block), :],
-                                       axis=1))
-        dx_ref[pl.ds(base, block), :] = jnp.dot(
-            delev, wmat_ref[:], preferred_element_type=jnp.float32,
-                   precision=_B_prec()
-        ).astype(dx_ref.dtype)
-
-    for l in range(lc):
-        gather_level(buf_a, 0, l)
-
-    def body(j, _):
-        b0 = 2 * j * block
-        process(buf_a, b0, b0 + block)
-        process(buf_b, b0 + block, b0 + 2 * block)
-        return 0
-
-    jax.lax.fori_loop(0, nblk // 2, body, 0)
-
-
-def _dydx4_pallas(g_up: Array, x: Array, table_unpacked: Array,
-                  meta: PermutoCellMeta, tile: int = 2048,
-                  interpret: bool = False) -> Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    d = meta.n_dims
-    n0 = x.shape[0]
-    if n0 > _MAX_CHUNK:
-        from nr3d_lib_tpu.ops.chunking import scan_chunks
-
-        def body(xc, gc):
-            return (_dydx4_pallas(gc, xc, table_unpacked, meta, tile,
-                                  interpret),), ()
-
-        (dx,), _ = scan_chunks(body, (x, g_up), n0, _MAX_CHUNK,
-                               pad_values=(0.5,))
-        return dx
-    table = pack_table4(table_unpacked)
-    x, n = _pad_points(x, tile)
-    n_pad = x.shape[0]
-    if g_up.shape[0] != n_pad:
-        g_up = jnp.pad(g_up, ((0, n_pad - g_up.shape[0]), (0, 0)))
-    dx_total = jnp.zeros((n_pad, d), jnp.float32)
-    col = 0
-    for group in _level_groups4(meta):
-        lc = len(group)
-        base = group[0].row_offset
-        g_rows = sum(l.n_rows for l in group)
-        table_g = jax.lax.dynamic_slice_in_dim(table, base, g_rows, axis=0)
-        rows, lane_c, bary_c, sel1, sel2 = _prologue4(
-            x, meta, jnp.float32, group)
-        rows = rows - base
-        gup_g = g_up[:, col:col + 4 * lc]
-        col += 4 * lc
-        wmat = jnp.asarray(_dx_weight_matrix(meta, group), jnp.float32)
-        block = _FWD_BLOCK if tile % (2 * _FWD_BLOCK) == 0 else tile // 2
-        kernel = functools.partial(_dydx4_kernel_v3, meta, lc, tile, block)
-        dx_g = pl.pallas_call(
-            kernel,
-            grid=(n_pad // tile,),
-            in_specs=[
-                pl.BlockSpec((lc, tile), lambda i: (0, i),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((tile, lane_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, bary_c.shape[1]), lambda i: (i, 0)),
-                pl.BlockSpec((tile, 4 * lc), lambda i: (i, 0)),
-                pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                pl.BlockSpec((tile, LANES), lambda i: (i, 0)),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((tile, d), lambda i: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((n_pad, d), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((lc * block, LANES), jnp.float32)
-                            for _ in range(2)],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=110 * 1024 * 1024),
-            interpret=interpret,
-        )(rows, lane_c, bary_c, gup_g, sel1, sel2, wmat, table_g)
-        dx_total = dx_total + dx_g
-    return dx_total[:n]
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def permuto_cell4_nablas(g_up: Array, x: Array, table: Array,
-                         meta: PermutoCellMeta) -> Array:
-    """Differentiable F=4 cell nablas (cf. permuto_cell_nablas): Pallas
-    forward on TPU, any-order XLA backward."""
-    if jax.default_backend() == "tpu":
-        return _dydx4_pallas(g_up, x, table, meta)
-    _, vjp_fn = jax.vjp(
-        lambda xx: permuto_cell4_encode_xla(xx, table, meta), x)
-    return vjp_fn(g_up)[0]
-
-
-def _nab4_fwd(g_up, x, table, meta):
-    return permuto_cell4_nablas(g_up, x, table, meta), (g_up, x, table)
-
-
-def _nab4_bwd(meta, res, gg):
-    g_up, x, table = res
-
-    def nab_fn(gu, xx, tt):
-        _, vjp_fn = jax.vjp(
-            lambda x_: permuto_cell4_encode_xla(x_, tt, meta), xx)
-        return vjp_fn(gu)[0]
-
-    _, vjp2 = jax.vjp(nab_fn, g_up, x, table)
-    return vjp2(gg)
-
-
-permuto_cell4_nablas.defvjp(_nab4_fwd, _nab4_bwd)

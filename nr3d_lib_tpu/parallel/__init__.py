@@ -1,9 +1,9 @@
 """Multi-host / multi-chip parallelism utilities.
 
-TPU-native replacement for the reference's NCCL/DDP plumbing
+Replacement for the reference's NCCL/DDP plumbing
 (reference: nr3d_lib/distributed.py:20-139). Instead of process groups we
 expose ONE device mesh and rely on `jax.sharding` + `shard_map`/`pjit` to
-emit collectives over ICI/DCN. Axes convention (SURVEY.md §2.3/§7):
+emit the collectives (NCCL over NVLink on GPUs). Axes convention (SURVEY.md §2.3/§7):
 
   * ``data``  — rays / pixels / batch elements (DP; gradients psum'd)
   * ``block`` — scene blocks (forest / batched-categorical sharding)

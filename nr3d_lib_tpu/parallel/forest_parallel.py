@@ -2,7 +2,7 @@
 
 The reference's large-scale axis is the forest: many blocks sharing one
 encoding kernel on ONE GPU (reference: lotd_forest.h, spatial/forest.py).
-It never solved multi-device placement (SURVEY §2.3). The TPU-native
+It never solved multi-device placement (SURVEY §2.3). The mesh-native
 scale-out is to give the forest its own mesh axis: per-block parameter
 slabs live on the device that owns the block, and a ray's samples are
 evaluated by the owning device only.
@@ -32,11 +32,8 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from nr3d_lib_tpu.ops.lotd import LoDMeta, lotd_encode
 

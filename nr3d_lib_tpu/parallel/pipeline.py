@@ -2,7 +2,7 @@
 
 Neural-field models are encode→decode chains; when the decoder stack is
 deep enough to matter (style/generative variants, big radiance heads), the
-TPU-native scaling axis is a pipeline: put stage s's params on mesh slice
+mesh-native scaling axis is a pipeline: put stage s's params on mesh slice
 s, stream microbatches through, and hand activations to the next stage
 with `ppermute` over ICI — no host involvement, fully inside one jit.
 
@@ -50,10 +50,7 @@ def pipeline_apply(stage_fn: Callable[[Array, Array], Array],
     first stage feeds itself microbatch t; the last stage's outputs are
     collected. M must be ≥ 1; S+M−1 ticks total.
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     n_stages = mesh.shape[stage_axis]

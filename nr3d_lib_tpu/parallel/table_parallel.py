@@ -1,7 +1,7 @@
 """Table-parallel (model-sharded) grid encodings.
 
 Street-scale scenes want hash tables larger than one chip's HBM — the
-reference scales by splitting the FOREST over blocks; the TPU-native axis
+reference scales by splitting the FOREST over blocks; the mesh-native axis
 is the device mesh: shard the encoding TABLE's rows over a mesh axis and
 let the compiler ride ICI.
 
@@ -86,10 +86,7 @@ def brick_encode_table_sharded(x: Array, table_sharded: Array,
                    slices it. Already-sharded arrays work via jit donation.
     Returns [N, 2L] sharded like x. Differentiable in both args.
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     x_spec = P(data_axis) if data_axis else P()

@@ -1,7 +1,7 @@
 """Hierarchical profiler (host wall-time tree + XLA trace hooks).
 
-TPU-native re-design of the reference's host+CUDA-event profiler
-(reference: nr3d_lib/profile.py:46-575). On TPU, device timing comes from the
+Re-design of the reference's host+CUDA-event profiler
+(reference: nr3d_lib/profile.py:46-575). Device timing comes from the
 XLA profiler (`jax.profiler.trace`) rather than event pairs; the hierarchical
 host-side node tree is preserved, with optional device synchronization
 (`sync=True` blocks async dispatch at node exit so host wall-time ≈ device
@@ -180,7 +180,7 @@ def profile(name_or_fn=None):
 def device_trace(log_dir: str = "/tmp/jax_trace"):
     """Capture an XLA device trace viewable in TensorBoard/xprof.
 
-    The TPU replacement for the reference's CUDA-event device timings
+    The replacement for the reference's CUDA-event device timings
     (reference: profile.py CUDA events): `jax.named_scope` annotations from
     `profile()` nodes appear inside this trace, mirroring the host tree.
     """

@@ -1,6 +1,6 @@
 """Generic utilities: nested-dict tooling, dtype helpers, stats, image IO.
 
-TPU-native counterpart of the reference's grab-bag utils
+Counterpart of the reference's grab-bag utils
 (reference: nr3d_lib/utils.py:44-1061). Torch-specific helpers become JAX
 equivalents (`check_to_jax`, pytree collate); CUDA micro-benchmarks become a
 `block_until_ready` timing harness.
@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 
 __all__ = [
+    "enable_compile_cache",
     "import_str",
     "nested_dict_keys",
     "nested_dict_items",
@@ -36,6 +37,24 @@ __all__ = [
     "chunked",
 ]
 
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compile cache; returns its directory.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and no
+    directory is set here. Otherwise the cache is the fixed
+    ``<repo>/.jax_cache`` (a fixed path: the path is part of the key, so a
+    moving directory never hits)."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    path = os.path.join(REPO_ROOT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 def import_str(string: str):
     """Import ``pkg.mod.attr`` from a dotted string (reference: utils.py import_str)."""

@@ -2,12 +2,12 @@
 
 The reference's interactive surface is a kaolin-wisp OpenGL/imgui/pycuda
 desktop app (reference: nr3d_lib/gui/ — datalayers + camera control around
-NR3DKaolinWispRenderer). TPU hosts are headless and usually remote, so the
-TPU-native equivalent is an HTTP viewer: a single-page orbit UI in the
+NR3DKaolinWispRenderer). Accelerator hosts are headless and usually remote, so the
+equivalent here is an HTTP viewer: a single-page orbit UI in the
 browser (drag = orbit, wheel = dolly, layer dropdown) requesting frames
 from a tiny threaded server that bridges to the same
 `model.ray_test/ray_query` path as `gui.NeuralRenderer`. Works over an SSH
-port-forward to a pod host; rendering is serialized behind a lock (one
+port-forward to a remote host; rendering is serialized behind a lock (one
 model, one chip).
 
 Usage::

@@ -2,7 +2,7 @@
 
 The reference library's second test category (SURVEY §4: pack_ops vs
 kaolin, permuto vs the original repo, octree vs kaolin) checks kernels
-against implementations nobody here wrote. The TPU equivalents below use
+against implementations nobody here wrote. The equivalents below use
 scipy and torch-cpu as the independent oracles:
 
   rotations / slerp        vs scipy.spatial.transform.Rotation / Slerp

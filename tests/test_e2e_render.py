@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 
 def make_scene_rays(n: int, key, res: int = 32):
@@ -46,12 +46,12 @@ def test_train_tiny_nerf_psnr_improves():
             "radiance_cfg": {"D": 1, "W": 32}},
         space_cfg={"radius": 1.0}, accel_cfg={"resolution": 16})
 
-    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    graphdef, params, rest = nn.split(model, nn.Param, ...)
     opt = optax.adam(5e-3)
     opt_state = opt.init(params)
 
     def render(params, rest, o, d, key):
-        m = nnx.merge(graphdef, params, rest)
+        m = nn.merge(graphdef, params, rest)
         ray_tested = m.space.ray_test(o, d)
         rendered, _ = nerf_ray_query_fixed(m, m.space, ray_tested,
                                            n_samples=48, perturb_key=key)
@@ -89,7 +89,7 @@ def test_train_tiny_nerf_psnr_improves():
     assert psnr1 > 15, f"final PSNR {psnr1:.2f} too low"
 
     # depth sanity: rendered depth near analytic hit depth for hit rays
-    m = nnx.merge(graphdef, params, rest)
+    m = nn.merge(graphdef, params, rest)
     o, d, rgb_gt, hit, t_hit = make_scene_rays(256, jax.random.key(7))
     ray_tested = m.space.ray_test(o, d)
     rendered, _ = nerf_ray_query_fixed(m, m.space, ray_tested, n_samples=64)
@@ -129,7 +129,7 @@ def test_neus_query_and_eikonal_step():
         ray_query_cfg={"query_mode": "coarse_multi_upsample", "n_coarse": 24,
                        "upsample_inv_s_factors": [1.0, 4.0], "n_importance": 8})
     model.populate()
-    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    graphdef, params, rest = nn.split(model, nn.Param, ...)
 
     o = jnp.asarray([[-2.0, 0.0, 0.0], [0.0, -2.0, 0.1], [2.0, 2.0, 2.0]])
     d = jnp.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [-0.577, -0.577, -0.577]])
@@ -138,7 +138,7 @@ def test_neus_query_and_eikonal_step():
     @jax.jit
     def loss_and_grad(params):
         def loss_fn(p):
-            m = nnx.merge(graphdef, p, rest)
+            m = nn.merge(graphdef, p, rest)
             ray_tested = m.ray_test(o, d)
             rendered, vb = m.ray_query(ray_tested, key=jax.random.key(1))
             rgb_loss = jnp.mean((rendered["rgb_volume"] - rgb_gt) ** 2)
@@ -175,7 +175,7 @@ def test_neus_model_checkpoint_roundtrip(tmp_path):
     m1 = build()
     io = CheckpointIO(str(tmp_path))
     io.register_modules(model=m1)
-    io.save("ckpt_1.msgpack", it=1)
+    io.save("ckpt_1.npz", it=1)
 
     m2 = build()
     # perturb then restore
@@ -183,7 +183,7 @@ def test_neus_model_checkpoint_roundtrip(tmp_path):
         m2.field.implicit_surface.encoding.flattened_params[...] * 0.0
     io2 = CheckpointIO(str(tmp_path))
     io2.register_modules(model=m2)
-    io2.load("ckpt_1.msgpack")
+    io2.load("ckpt_1.npz")
     np.testing.assert_allclose(
         np.asarray(m2.field.implicit_surface.encoding.flattened_params[...]),
         np.asarray(m1.field.implicit_surface.encoding.flattened_params[...]))

@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 
 def _two_block_model(**kw):
@@ -76,7 +76,7 @@ def test_forest_empty_block_skipping_reduces_samples():
 def test_forest_model_train_step_with_accel():
     m = _two_block_model()
     m.populate()
-    graphdef, params, rest = nnx.split(m, nnx.Param, ...)
+    graphdef, params, rest = nn.split(m, nn.Param, ...)
     opt = optax.adam(1e-2)
     opt_state = opt.init(params)
     o = jnp.asarray([[-2.0, 0.1, 0.1], [2.0, 0.3, -0.2]])
@@ -86,7 +86,7 @@ def test_forest_model_train_step_with_accel():
     @jax.jit
     def step(params, opt_state, key):
         def loss_fn(p):
-            mm = nnx.merge(graphdef, p, rest)
+            mm = nn.merge(graphdef, p, rest)
             r, vb = mm.ray_query(mm.ray_test(o, d), key=key)
             eik = jnp.mean((jnp.linalg.norm(vb["nablas_packed"], axis=-1)
                             - 1.0) ** 2)
@@ -98,9 +98,9 @@ def test_forest_model_train_step_with_accel():
 
     losses = []
     for it in range(5):
-        m2 = nnx.merge(graphdef, params, rest)
+        m2 = nn.merge(graphdef, params, rest)
         m2.training_before_per_step(it, jax.random.key(100 + it))
-        _, _, rest = nnx.split(m2, nnx.Param, ...)
+        _, _, rest = nn.split(m2, nn.Param, ...)
         params, opt_state, loss = step(params, opt_state, jax.random.key(it))
         losses.append(float(loss))
     assert np.isfinite(losses).all()
@@ -116,7 +116,7 @@ def test_forest_sharded_train_step():
     from nr3d_lib_tpu.parallel import make_mesh
 
     m = _two_block_model()
-    graphdef, params, rest = nnx.split(m, nnx.Param, ...)
+    graphdef, params, rest = nn.split(m, nn.Param, ...)
     mesh = make_mesh([8], ("block",))
 
     def shard_leaf(path, leaf):
@@ -134,7 +134,7 @@ def test_forest_sharded_train_step():
     gt = jnp.asarray([[0.2, 0.4, 0.6], [0.6, 0.4, 0.2]])
 
     def loss_fn(p):
-        mm = nnx.merge(graphdef, p, rest)
+        mm = nn.merge(graphdef, p, rest)
         r, _ = mm.ray_query(mm.ray_test(o, d))
         return jnp.mean((r["rgb_volume"] - gt) ** 2)
 

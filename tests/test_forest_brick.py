@@ -1,7 +1,7 @@
 """Per-block (forest/batched) brick encoding: row-offset correctness,
-interpret-mode kernel parity, and the forest-SDF brick nablas path
-(reference capability: csrc/lotd/lotd_forest.h; TPU design:
-ops/lotd_brick.brick_encode_batched)."""
+second order through the offsets, and the forest model's brick backend
+(reference capability: csrc/lotd/lotd_forest.h; here
+ops/lotd_brick.brick_encode_xla with `bidx`)."""
 
 import jax
 import jax.numpy as jnp
@@ -11,13 +11,12 @@ from nr3d_lib_tpu.ops import lotd_brick as B
 
 
 def _meta():
-    return B.make_forest_meta(
-        B.make_brick_meta([12, 24], ["Dense", "Hash"], hashmap_rows=128))
+    return B.make_brick_meta([12, 24], ["Dense", "Hash"], hashmap_rows=128)
 
 
 def test_batched_xla_matches_per_block(rng):
-    """brick_encode_xla_batched == running brick_encode_xla per block with
-    that block's table slice; bidx<0 clamps to block 0."""
+    """brick_encode_xla with bidx == running it per block with that
+    block's table slice; bidx<0 clamps to block 0."""
     meta = _meta()
     n_blocks = 3
     table = jnp.asarray(rng.standard_normal(
@@ -25,7 +24,7 @@ def test_batched_xla_matches_per_block(rng):
     x = jnp.asarray(rng.uniform(0.0, 0.999, (128, 3)).astype(np.float32))
     bidx = jnp.asarray(rng.integers(-1, n_blocks, 128).astype(np.int32))
 
-    y = B.brick_encode_xla_batched(x, table, meta, bidx)
+    y = B.brick_encode_xla(x, table, meta, bidx)
     for b in range(n_blocks):
         sel = np.asarray(bidx) == b
         tb = table[b * meta.total_rows:(b + 1) * meta.total_rows]
@@ -41,80 +40,49 @@ def test_batched_xla_matches_per_block(rng):
                                rtol=1e-6, atol=1e-7)
 
 
-def test_batched_kernel_interpret_parity(rng):
-    """fwd + bwd kernels with per-block row offsets vs the XLA batched
-    reference, in interpreter mode (MXU disabled by make_forest_meta)."""
-    meta = _meta()
-    assert B._mxu_levels(meta) == ()
-    n_blocks = 4
-    table = jnp.asarray(rng.standard_normal(
-        (n_blocks * meta.total_rows, 128)).astype(np.float32))
-    n = 512
-    x = jnp.asarray(rng.uniform(0.0, 0.999, (n, 3)).astype(np.float32))
-    bidx = jnp.asarray(rng.integers(0, n_blocks, n).astype(np.int32))
-    g = jnp.asarray(rng.standard_normal((n, 2 * meta.n_levels))
-                    .astype(np.float32))
-
-    y_ref, vjp = jax.vjp(
-        lambda xx, tt: B.brick_encode_xla_batched(xx, tt, meta, bidx),
-        x, table)
-    dx_ref, dtab_ref = vjp(g)
-
-    saved = (B._FWD_BLOCK, B._FWD_VERSION)
-    B._FWD_BLOCK, B._FWD_VERSION = 256, 3
-    try:
-        y_k = B._brick_encode_pallas_impl(x, table, meta, tile=512,
-                                          interpret=True, bidx=bidx)
-        dx_k, dtab_k = B._brick_bwd_pallas_impl(x, table, g, meta, tile=512,
-                                                interpret=True, bidx=bidx)
-        nab_k = B._brick_dydx_pallas(g, x, table, meta, tile=512,
-                                     interpret=True, bidx=bidx)
-    finally:
-        B._FWD_BLOCK, B._FWD_VERSION = saved
-    np.testing.assert_allclose(np.asarray(y_k), np.asarray(y_ref),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(dx_k), np.asarray(dx_ref),
-                               rtol=2e-4, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(dtab_k), np.asarray(dtab_ref),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(nab_k), np.asarray(dx_ref),
-                               rtol=2e-4, atol=2e-3)
-
-
 def test_nablas_batched_second_order_cpu(rng):
-    """Eikonal-style grads THROUGH brick_nablas_batched equal nested
-    autodiff of the XLA batched reference."""
+    """Eikonal-style grads through the per-block encode's nested vjp equal
+    the same loss computed block by block on each block's table slice."""
     meta = _meta()
     n_blocks = 2
+    rows = meta.total_rows
     table = jnp.asarray(rng.standard_normal(
-        (n_blocks * meta.total_rows, 128)).astype(np.float32))
+        (n_blocks * rows, 128)).astype(np.float32))
     x = jnp.asarray(rng.uniform(0.0, 0.999, (64, 3)).astype(np.float32))
-    bidx = jnp.asarray(rng.integers(0, n_blocks, 64).astype(np.int32))
+    bidx_np = rng.integers(0, n_blocks, 64).astype(np.int32)
+    bidx = jnp.asarray(bidx_np)
     g_up = jnp.asarray(rng.standard_normal((64, 2 * meta.n_levels))
                        .astype(np.float32))
 
-    def eik(gu, xx, tt):
-        nab = B.brick_nablas_batched(gu, xx, tt, meta, bidx)
-        return jnp.mean((jnp.linalg.norm(nab, axis=-1) - 1.0) ** 2)
-
-    def eik_ref(gu, xx, tt):
-        _, vjp_fn = jax.vjp(
-            lambda x_: B.brick_encode_xla_batched(x_, tt, meta, bidx), xx)
+    def eik_terms(xx, tt, gu, b=None):
+        _, vjp_fn = jax.vjp(lambda x_: B.brick_encode_xla(x_, tt, meta, b),
+                            xx)
         nab = vjp_fn(gu)[0]
-        return jnp.mean((jnp.linalg.norm(nab, axis=-1) - 1.0) ** 2)
+        return (jnp.linalg.norm(nab, axis=-1) - 1.0) ** 2
 
-    g1 = jax.grad(eik, argnums=(0, 1, 2))(g_up, x, table)
-    g2 = jax.grad(eik_ref, argnums=(0, 1, 2))(g_up, x, table)
-    for a, b in zip(g1, g2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-5)
+    def eik(tt):
+        return jnp.sum(eik_terms(x, tt, g_up, bidx))
+
+    def eik_blockwise(tt):
+        tot = 0.0
+        for b in range(n_blocks):
+            sel = bidx_np == b
+            tot = tot + jnp.sum(eik_terms(x[sel], tt[b * rows:(b + 1) * rows],
+                                          g_up[sel]))
+        return tot
+
+    g1 = jax.grad(eik)(table)
+    g2 = jax.grad(eik_blockwise)(table)
+    assert (np.abs(np.asarray(g1)) > 0).any()
+    np.testing.assert_allclose(np.asarray(g1), np.asarray(g2),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_forest_model_brick_backend_train_step():
     """LoTDForestNeuSModel with the brick-backend encoding: render + one
     eikonal train step, loss decreases and grads stay finite."""
     import optax
-    from flax import nnx
+    from nr3d_lib_tpu import nn
 
     from nr3d_lib_tpu.models.fields_forest import LoTDForestNeuSModel
 
@@ -130,7 +98,7 @@ def test_forest_model_brick_backend_train_step():
         n_march_steps=48)
     m.populate()
     assert m.field.implicit_surface.encoding.backend == "brick"
-    graphdef, params, rest = nnx.split(m, nnx.Param, ...)
+    graphdef, params, rest = nn.split(m, nn.Param, ...)
     opt = optax.adam(1e-2)
     opt_state = opt.init(params)
     o = jnp.asarray([[-2.0, 0.4, 0.4], [2.0, 0.6, 0.5]])
@@ -140,7 +108,7 @@ def test_forest_model_brick_backend_train_step():
     @jax.jit
     def step(params, opt_state, key):
         def loss_fn(p):
-            mm = nnx.merge(graphdef, p, rest)
+            mm = nn.merge(graphdef, p, rest)
             r, vb = mm.ray_query(mm.ray_test(o, d), key=key)
             eik = jnp.mean((jnp.linalg.norm(vb["nablas_packed"], axis=-1)
                             - 1.0) ** 2)

@@ -60,17 +60,17 @@ def test_checkpoint_roundtrip(tmp_path):
     state = {"w": jnp.arange(6.0).reshape(2, 3), "b": jnp.zeros(3)}
     io = CheckpointIO(str(tmp_path))
     io.register_modules(net=state)
-    io.save("ckpt_100.msgpack", it=100)
-    io.save("ckpt_latest.msgpack", it=200)
+    io.save("ckpt_100.npz", it=100)
+    io.save("ckpt_latest.npz", it=200)
 
     io2 = CheckpointIO(str(tmp_path))
     io2.register_modules(net={"w": jnp.zeros((2, 3)), "b": jnp.ones(3)})
-    extras = io2.load("ckpt_100.msgpack")
+    extras = io2.load("ckpt_100.npz")
     assert extras["it"] == 100
     np.testing.assert_allclose(np.asarray(io2.module_dict["net"]["w"]),
                                np.arange(6.0).reshape(2, 3))
     ordered = sorted_ckpts(str(tmp_path))
-    assert ordered[-1].endswith("latest.msgpack")
+    assert ordered[-1].endswith("latest.npz")
 
 
 def test_profiler_tree():

@@ -1,33 +1,11 @@
-"""Brick-layout LoTD tests (CPU: XLA path + interpret-mode parity)."""
+"""Brick-layout LoTD tests."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from nr3d_lib_tpu.ops import lotd_brick as B
 from nr3d_lib_tpu.ops import lotd as L
-
-
-class _block(object):
-    """Temporarily force a kernel version / pipeline block: the default
-    1024 block is tuned for the TPU but traces enormous unrolled bodies in
-    interpret mode, and it silently falls back to v2 whenever
-    tile % (2·block) != 0 — tests pin both knobs explicitly."""
-
-    def __init__(self, block, version=3, mxu=True):
-        self.block = block
-        self.version = version
-        self.mxu = mxu
-
-    def __enter__(self):
-        self.saved = (B._FWD_BLOCK, B._FWD_VERSION, B._MXU_DENSE)
-        B._FWD_BLOCK = self.block
-        B._FWD_VERSION = self.version
-        B._MXU_DENSE = self.mxu
-
-    def __exit__(self, *a):
-        B._FWD_BLOCK, B._FWD_VERSION, B._MXU_DENSE = self.saved
 
 
 def test_meta_and_layout():
@@ -84,7 +62,7 @@ def test_grads_flow_to_canonical_params(rng):
 
     def loss(p):
         table = B.materialize_dense_brick_table(p, bmeta.levels[0])
-        return (B.brick_encode(x, table, bmeta, False) ** 2).sum()
+        return (B.brick_encode_xla(x, table, bmeta) ** 2).sum()
 
     g = np.asarray(jax.grad(loss)(vparams))
     assert np.isfinite(g).all() and (np.abs(g) > 0).any()
@@ -117,14 +95,14 @@ def test_hash_level_basic(rng):
 
 def test_second_order_through_brick(rng):
     """Eikonal-style: grad of grad-norm wrt table must be finite/nonzero
-    (backward is the XLA formulation → all orders available)."""
+    (plain autodiff → all orders available)."""
     bmeta = B.make_brick_meta([16], ["Dense"])
     table = jnp.asarray(rng.standard_normal((bmeta.total_rows, 128)) * 0.1)
     x = jnp.asarray(rng.uniform(0.1, 0.9, (8, 3)))
 
     def eik(t):
         def f(xx):
-            return B.brick_encode(xx, t, bmeta, False).sum()
+            return B.brick_encode_xla(xx, t, bmeta).sum()
 
         nab = jax.grad(f)(x)
         return ((jnp.linalg.norm(nab, axis=-1) - 1.0) ** 2).sum()
@@ -133,186 +111,44 @@ def test_second_order_through_brick(rng):
     assert np.isfinite(g).all() and (np.abs(g) > 0).any()
 
 
-def test_pallas_kernel_interpret_mode(rng):
-    """Run the Pallas kernel in interpreter mode on CPU and compare vs XLA."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    bmeta = B.make_brick_meta([16, 64], ["Dense", "Hash"], hashmap_rows=256)
-    table = jnp.asarray(rng.standard_normal((bmeta.total_rows, 128))
-                        .astype(np.float32))
-    x = jnp.asarray(rng.uniform(0.01, 0.99, (300, 3)).astype(np.float32))
-    y_ref = B.brick_encode_xla(x, table, bmeta)
-    # v3 (pipelined, block=128 so the 256-tile triggers it) with the one-hot
-    # MXU gather on AND off (both levels are ≤ _MXU_MAX_ROWS, so mxu=False
-    # is what keeps the scalar gather loop covered), and v2
-    for blk, ver, mxu in ((128, 3, True), (128, 3, False), (128, 2, True)):
-        with _block(blk, ver, mxu), pltpu.force_tpu_interpret_mode():
-            y_k = B._brick_encode_pallas(x, table, bmeta, tile=256)
-        np.testing.assert_allclose(np.asarray(y_k), np.asarray(y_ref),
-                                   rtol=1e-5, atol=1e-6)
-
-
-def test_pallas_backward_interpret_mode(rng):
-    """v2 Pallas backward (scatter-accumulate dtable + fused dx) vs the XLA
-    vjp, in interpreter mode, on ray-coherent AND random points (the
-    group-uniform fast path and the mixed path both execute)."""
-    bmeta = B.make_brick_meta([16, 32, 64, 128],
-                              ["Dense", "Dense", "Hash", "Hash"],
-                              hashmap_rows=512)
-    table = jnp.asarray(rng.standard_normal((bmeta.total_rows, 128))
-                        .astype(np.float32))
-    n = 2048
-    # coherent: 32 rays × 64 samples
-    o = jnp.asarray(rng.uniform(0.1, 0.3, (32, 1, 3)).astype(np.float32))
-    d = jnp.asarray(rng.standard_normal((32, 1, 3)).astype(np.float32))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    t = jnp.linspace(0, 0.6, 64, dtype=jnp.float32)[None, :, None]
-    x_coh = jnp.clip(o + d * t, 0.0, 0.999).reshape(n, 3)
-    x_rnd = jnp.asarray(rng.uniform(0.0, 0.999, (n, 3)).astype(np.float32))
-    g = jnp.asarray(rng.standard_normal((n, 2 * bmeta.n_levels))
-                    .astype(np.float32))
-
-    # all four levels are ≤ _MXU_MAX_ROWS: mxu=True runs everything through
-    # the one-hot matmul gather/scatter; mxu=False keeps the scalar
-    # gather/scatter-add loops covered (once — interpret tracing of the
-    # unrolled loops dominates test time)
-    for x, mxu in ((x_coh, True), (x_rnd, True), (x_rnd, False)):
-        y_ref, vjp = jax.vjp(lambda xx, tt: B.brick_encode_xla(xx, tt, bmeta),
-                             x, table)
-        dx_ref, dtab_ref = vjp(g)
-        with _block(256, 3, mxu):
-            y = B._brick_encode_pallas_impl(x, table, bmeta, tile=2048,
-                                            interpret=True)
-            dx, dtab = B._brick_bwd_pallas_impl(x, table, g, bmeta,
-                                                tile=2048, interpret=True)
-        np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(dx), np.asarray(dx_ref),
-                                   rtol=2e-4, atol=2e-3)
-        np.testing.assert_allclose(np.asarray(dtab), np.asarray(dtab_ref),
-                                   rtol=1e-4, atol=1e-5)
-
-    # bwd_dydx (nablas fast path) matches too
-    dx_fast = B.brick_bwd_dydx(g, x_rnd, table, bmeta)
-    _, vjp_x = jax.vjp(lambda xx: B.brick_encode_xla(xx, table, bmeta), x_rnd)
-    np.testing.assert_allclose(np.asarray(dx_fast),
-                               np.asarray(vjp_x(g)[0]), rtol=2e-4, atol=2e-3)
-
-
-def test_pallas_backward_v4_interpret_mode(rng):
-    """Round-5 v4 backward (per-level dL/dtable accumulators + forward-saved
-    g instead of a re-gather) vs the XLA vjp, in interpreter mode. Covers
-    the want_g forward, the need_dx path, and the frozen-x path."""
-    bmeta = B.make_brick_meta([16, 32, 64, 128],
-                              ["Dense", "Dense", "Hash", "Hash"],
-                              hashmap_rows=512)
-    table = jnp.asarray(rng.standard_normal((bmeta.total_rows, 128))
-                        .astype(np.float32))
-    n = 2048
-    x = jnp.asarray(rng.uniform(0.0, 0.999, (n, 3)).astype(np.float32))
-    g = jnp.asarray(rng.standard_normal((n, 2 * bmeta.n_levels))
-                    .astype(np.float32))
-    y_ref, vjp = jax.vjp(lambda xx, tt: B.brick_encode_xla(xx, tt, bmeta),
-                         x, table)
-    dx_ref, dtab_ref = vjp(g)
-    with _block(256, 3, False):
-        assert B._v4_ok(bmeta)
-        y, gpk = B._brick_encode_pallas_g(x, table, bmeta, interpret=True)
-        dx, dtab = B._brick_bwd_pallas_v4(x, gpk, g, bmeta, table.dtype,
-                                          interpret=True)
-        dxf, dtabf = B._brick_bwd_pallas_v4(x, None, g, bmeta, table.dtype,
-                                            interpret=True, need_dx=False)
-    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(dx), np.asarray(dx_ref),
-                               rtol=2e-4, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(dtab), np.asarray(dtab_ref),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(dtabf), np.asarray(dtab_ref),
-                               rtol=1e-4, atol=1e-5)
-    assert float(jnp.max(jnp.abs(dxf))) == 0.0
-
-
-def test_pallas_second_order_interpret_mode(rng):
-    """The dedicated 2nd-order Pallas pair (nablas kernel + its backward —
-    reference kernel_lod_backward_input_backward_grid, lotd_encoding.h:765)
-    vs the XLA nested-vjp formulation, in interpreter mode."""
-    bmeta = B.make_brick_meta([16, 32, 64], ["Dense", "Dense", "Hash"],
-                              hashmap_rows=512)
-    table = jnp.asarray(rng.standard_normal((bmeta.total_rows, 128))
-                        .astype(np.float32))
-    n = 512
-    x = jnp.asarray(rng.uniform(0.0, 0.999, (n, 3)).astype(np.float32))
-    g_up = jnp.asarray(rng.standard_normal((n, 2 * bmeta.n_levels))
-                       .astype(np.float32))
-    gg = jnp.asarray(rng.standard_normal((n, 3)).astype(np.float32))
-
-    # primal: nablas kernel vs XLA vjp — v3 (block=256) and v2
-    _, vjp_x = jax.vjp(lambda xx: B.brick_encode_xla(xx, table, bmeta), x)
-    nab_ref = vjp_x(g_up)[0]
-    for blk, ver in ((256, 3), (256, 2)):
-        with _block(blk, ver):
-            nab_k = B._brick_dydx_pallas(g_up, x, table, bmeta, tile=512,
-                                         interpret=True)
-        np.testing.assert_allclose(np.asarray(nab_k), np.asarray(nab_ref),
-                                   rtol=2e-4, atol=2e-3)
-
-    # backward: the three cotangents vs XLA double-vjp
-    def nab_fn(gu, xx, tt):
-        _, vjp_fn = jax.vjp(lambda x_: B.brick_encode_xla(x_, tt, bmeta), xx)
-        return vjp_fn(gu)[0]
-
-    _, vjp2 = jax.vjp(nab_fn, g_up, x, table)
-    dgup_ref, dx_ref, dtab_ref = vjp2(gg)
-    for blk, ver in ((256, 3), (256, 2)):
-        with _block(blk, ver):
-            dgup_k, dx_k, dtab_k = B._brick_bwd2_pallas(
-                g_up, x, table, gg, bmeta, tile=512, interpret=True)
-        np.testing.assert_allclose(np.asarray(dgup_k), np.asarray(dgup_ref),
-                                   rtol=2e-4, atol=2e-3)
-        np.testing.assert_allclose(np.asarray(dx_k), np.asarray(dx_ref),
-                                   rtol=2e-4, atol=2e-2)
-        np.testing.assert_allclose(np.asarray(dtab_k), np.asarray(dtab_ref),
-                                   rtol=2e-4, atol=2e-3)
-
-
 def test_brick_nablas_custom_vjp_cpu(rng):
-    """brick_nablas on CPU (XLA fallback): eikonal-style loss grads to
-    (g_up, x, table) equal plain nested autodiff through brick_encode_xla."""
+    """Eikonal loss through the nested vjp of brick_encode_xla: its
+    gradient to the table matches central finite differences of the
+    first-order nablas (the double backward is plain autodiff)."""
     bmeta = B.make_brick_meta([16], ["Dense"])
-    table = jnp.asarray(rng.standard_normal((bmeta.total_rows, 128))
-                        .astype(np.float32) * 0.1)
-    x = jnp.asarray(rng.uniform(0.1, 0.9, (16, 3)).astype(np.float32))
-    g_up = jnp.asarray(rng.standard_normal((16, 2)).astype(np.float32))
+    table = jnp.asarray(rng.standard_normal((bmeta.total_rows, 128)) * 0.1)
+    x = jnp.asarray(rng.uniform(0.1, 0.9, (16, 3)))
+    g_up = jnp.asarray(rng.standard_normal((16, 2)))
 
-    def eik_custom(gu, xx, tt):
-        nab = B.brick_nablas(gu, xx, tt, bmeta)
+    def eik(tt):
+        _, vjp_fn = jax.vjp(lambda x_: B.brick_encode_xla(x_, tt, bmeta), x)
+        nab = vjp_fn(g_up)[0]
         return ((jnp.linalg.norm(nab, axis=-1) - 1.0) ** 2).sum()
 
-    def eik_plain(gu, xx, tt):
-        _, vjp_fn = jax.vjp(lambda x_: B.brick_encode_xla(x_, tt, bmeta), xx)
-        nab = vjp_fn(gu)[0]
-        return ((jnp.linalg.norm(nab, axis=-1) - 1.0) ** 2).sum()
-
-    g_c = jax.grad(eik_custom, argnums=(0, 1, 2))(g_up, x, table)
-    g_p = jax.grad(eik_plain, argnums=(0, 1, 2))(g_up, x, table)
-    for a, b in zip(g_c, g_p):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-6)
-
+    g = np.asarray(jax.grad(eik)(table))
+    assert np.isfinite(g).all()
+    t0 = np.asarray(table)
+    eps = 1e-6
+    for flat in np.argsort(-np.abs(g).ravel())[:3]:
+        j = np.unravel_index(flat, g.shape)
+        tp, tm = t0.copy(), t0.copy()
+        tp[j] += eps
+        tm[j] -= eps
+        fd = (eik(jnp.asarray(tp)) - eik(jnp.asarray(tm))) / (2 * eps)
+        np.testing.assert_allclose(g[j], fd, rtol=1e-4, atol=1e-7)
 
 def test_brick_sdf_field_nablas_path(rng):
-    """LoTDSDF with the brick backend: the decoder-vjp + encoding-nablas
-    split must equal plain autodiff of the whole field, for both the
-    nablas primal and the eikonal gradient to every parameter."""
-    import flax.nnx as nnx
+    """LoTDSDF with the brick backend: forward_sdf_nablas must equal plain
+    autodiff of the whole field, for both the nablas primal and the eikonal
+    gradient to every parameter."""
+    from nr3d_lib_tpu import nn
 
     from nr3d_lib_tpu.models.fields.sdf import LoTDSDF
 
     f = LoTDSDF(encoding_cfg={
         "backend": "brick",
         "lotd_cfg": {"lod_res": [8, 16], "lod_types": ["Dense", "Hash"]},
-        "hashmap_rows": 128, "use_pallas": False},
+        "hashmap_rows": 128},
         decoder_cfg={"D": 1, "W": 16}, n_geo_feat=4, seed=0)
     x = jnp.asarray(rng.uniform(-0.9, 0.9, (32, 3)).astype(np.float32))
 
@@ -324,16 +160,16 @@ def test_brick_sdf_field_nablas_path(rng):
     np.testing.assert_allclose(np.asarray(out["sdf"]),
                                np.asarray(sdf_ref["sdf"]), rtol=1e-6)
 
-    graphdef, params, rest = nnx.split(f, nnx.Param, ...)
+    graphdef, params, rest = nn.split(f, nn.Param, ...)
 
     def eik(p, use_brick_path):
-        m = nnx.merge(graphdef, p, rest)
+        m = nn.merge(graphdef, p, rest)
         if use_brick_path:
             o = m.forward_sdf_nablas(x)
             nab = o["nablas"]
         else:
             def g1(xx):
-                return m._sdf_h(xx, ho=True)[..., 0].sum()
+                return m._sdf_h(xx)[..., 0].sum()
 
             nab = jax.grad(g1)(x)
         return ((jnp.linalg.norm(nab, axis=-1) - 1.0) ** 2).sum()
@@ -356,18 +192,18 @@ def test_brick_encoding_module(rng):
         LoTDBrickEncoding)
 
     enc = LoTDBrickEncoding(3, lod_res=[16, 128], lod_types=["Dense", "Hash"],
-                            hashmap_rows=256, use_pallas=False, seed=3)
+                            hashmap_rows=256, seed=3)
     x = jnp.asarray(rng.uniform(-0.9, 0.9, (32, 3)).astype(np.float32))
     y = enc(x)
     assert y.shape == (32, 4) and np.isfinite(np.asarray(y)).all()
 
     # gradient flows into both dense canonical and hash rows
-    import flax.nnx as nnx
+    from nr3d_lib_tpu import nn
 
-    graphdef, params, rest = nnx.split(enc, nnx.Param, ...)
+    graphdef, params, rest = nn.split(enc, nn.Param, ...)
 
     def loss(p):
-        m = nnx.merge(graphdef, p, rest)
+        m = nn.merge(graphdef, p, rest)
         return (m(x) ** 2).sum()
 
     g = jax.tree_util.tree_leaves(jax.grad(loss)(params))[0]
@@ -377,31 +213,3 @@ def test_brick_encoding_module(rng):
     assert (np.abs(g[o[1]:o[2]]) > 0).any(), "hash level got no grad"
 
 
-def test_store_batch_paths_bit_identical(rng):
-    """Both _STORE_BATCH settings (1 = per-row stores, 8 = batched (8,128)
-    stores + batched scatter-staging reads) must produce BIT-identical
-    values and grads — same loads, same order, different store grouping.
-    HW A/B picked 8 as the default (DESIGN.md round-4)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    bmeta = B.make_brick_meta([16, 64], ["Dense", "Hash"], hashmap_rows=256)
-    table = jnp.asarray(rng.standard_normal((bmeta.total_rows, 128))
-                        .astype(np.float32)) * 1e-2
-    x = jnp.asarray(rng.uniform(0.01, 0.99, (256, 3)).astype(np.float32))
-
-    def loss(t_, x_):
-        return jnp.sum(B.brick_encode(x_, t_, bmeta, True) ** 2)
-
-    res = {}
-    saved = B._STORE_BATCH
-    try:
-        for sb in (1, 8):
-            B._STORE_BATCH = sb
-            with _block(128, 3, False), pltpu.force_tpu_interpret_mode():
-                l, (dt, dx) = jax.value_and_grad(loss, argnums=(0, 1))(
-                    table, x)
-            res[sb] = (np.asarray(l), np.asarray(dt), np.asarray(dx))
-    finally:
-        B._STORE_BATCH = saved
-    for i in range(3):
-        np.testing.assert_array_equal(res[1][i], res[8][i])

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 from nr3d_lib_tpu.ops.lotd import generate_meta, lotd_encode
 
@@ -39,10 +39,10 @@ def test_grower_shapes_grads_and_conditioning(gtype, meta):
     assert h.shape == (12, meta.out_features)
     assert np.isfinite(np.asarray(h)).all()
 
-    graphdef, params, rest = nnx.split(g, nnx.Param, ...)
+    graphdef, params, rest = nn.split(g, nn.Param, ...)
 
     def loss(pp):
-        gg = nnx.merge(graphdef, pp, rest)
+        gg = nn.merge(graphdef, pp, rest)
         return jnp.sum(lotd_encode(x, gg(z), meta, bidx=bidx) ** 2)
 
     grads = jax.grad(loss)(params)
@@ -102,10 +102,10 @@ def test_style_lotd_with_grower_type(gtype):
     assert out["rgb"].shape == (6, 3)
     assert np.isfinite(np.asarray(out["sdf"])).all()
 
-    graphdef, params, rest = nnx.split(f, nnx.Param, ...)
+    graphdef, params, rest = nn.split(f, nn.Param, ...)
 
     def loss(pp):
-        ff = nnx.merge(graphdef, pp, rest)
+        ff = nn.merge(graphdef, pp, rest)
         o = ff(x, v, z, bidx)
         return jnp.mean(o["rgb"] ** 2) + jnp.mean(o["sdf"] ** 2)
 

@@ -13,14 +13,14 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 O = jnp.asarray([[-2.0, 0.0, 0.0], [0.0, -2.0, 0.1]])
 D = jnp.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
 
 
 def _smoke_train(model, ray_extras, n_steps=3, use_nablas=True):
-    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    graphdef, params, rest = nn.split(model, nn.Param, ...)
     opt = optax.adam(1e-2)
     opt_state = opt.init(params)
     gt = jnp.asarray([[0.3, 0.5, 0.7], [0.7, 0.5, 0.3]])
@@ -28,7 +28,7 @@ def _smoke_train(model, ray_extras, n_steps=3, use_nablas=True):
     @jax.jit
     def step(params, opt_state, key):
         def loss_fn(p):
-            m = nnx.merge(graphdef, p, rest)
+            m = nn.merge(graphdef, p, rest)
             rt = m.ray_test(O, D)
             rt.update(ray_extras)
             r, vb = m.ray_query(rt, key=key)
@@ -47,9 +47,9 @@ def _smoke_train(model, ray_extras, n_steps=3, use_nablas=True):
 
     losses = []
     for it in range(n_steps):
-        m2 = nnx.merge(graphdef, params, rest)
+        m2 = nn.merge(graphdef, params, rest)
         m2.training_before_per_step(it, jax.random.key(50 + it))
-        _, _, rest = nnx.split(m2, nnx.Param, ...)
+        _, _, rest = nn.split(m2, nn.Param, ...)
         params, opt_state, loss = step(params, opt_state, jax.random.key(it))
         losses.append(float(loss))
     assert np.isfinite(losses).all(), losses
@@ -107,7 +107,7 @@ def test_generative_permuto_neus_model_batched():
         and np.isfinite(np.asarray(vb["nablas"])).all()
     losses = _smoke_train(m, {"bidx": bidx})
     # instance latents receive gradient (autodecoder training)
-    graphdef, params, _ = nnx.split(m, nnx.Param, ...)
+    graphdef, params, _ = nn.split(m, nn.Param, ...)
     leaves = {"/".join(str(getattr(p, "key", getattr(p, "idx", p)))
                        for p in path): leaf
               for path, leaf in jax.tree_util.tree_leaves_with_path(params)}
@@ -265,20 +265,19 @@ def test_emernerf_branch_isolated_renders():
 
 def test_lotd_neus_model_brick_backend_train_step():
     """LoTDNeuSModel with the brick encoding backend: full ray_query +
-    eikonal train step must run through the brick nablas dispatch
-    (LoTDSDF._forward_sdf_nablas_brick → brick_nablas; XLA fallback off-TPU)
-    with finite loss and nonzero encoding grads."""
+    eikonal train step (second order through the brick encode) with finite
+    loss and nonzero encoding grads."""
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from flax import nnx
+    from nr3d_lib_tpu import nn
 
     from nr3d_lib_tpu.models.model_base import LoTDNeuSModel
 
     m = LoTDNeuSModel(
         field_cfg={"surface_cfg": {
             "encoding_cfg": {
-                "backend": "brick", "use_pallas": False,
+                "backend": "brick",
                 "lotd_cfg": {"lod_res": [8, 16], "lod_n_feats": 2,
                              "lod_types": ["Dense", "Hash"]},
                 "hashmap_rows": 256},
@@ -289,7 +288,9 @@ def test_lotd_neus_model_brick_backend_train_step():
         ray_query_cfg={"query_mode": "coarse_multi_upsample", "n_coarse": 16,
                        "upsample_inv_s_factors": [1.0], "n_importance": 8})
     m.populate()
-    assert getattr(m.field.implicit_surface, "_enc_is_brick", False)
+    from nr3d_lib_tpu.models.grid_encodings.lotd import LoTDBrickEncoding
+
+    assert isinstance(m.field.implicit_surface.encoding, LoTDBrickEncoding)
 
     n = 8
     k = jax.random.key(0)
@@ -297,10 +298,10 @@ def test_lotd_neus_model_brick_backend_train_step():
     o = o / jnp.linalg.norm(o, -1, keepdims=True) * 2.0
     d = -o
     rt = m.space.ray_test(o, d)
-    graphdef, params, rest = nnx.split(m, nnx.Param, ...)
+    graphdef, params, rest = nn.split(m, nn.Param, ...)
 
     def loss_fn(p):
-        mm = nnx.merge(graphdef, p, rest)
+        mm = nn.merge(graphdef, p, rest)
         rendered, vb = mm.ray_query(rt, key=jax.random.key(1))
         eik = ((jnp.linalg.norm(vb["nablas"], axis=-1) - 1.0) ** 2
                * vb["vw"]).sum() / jnp.maximum(vb["vw"].sum(), 1e-6)

@@ -56,7 +56,7 @@ def test_forest_ray_march_blocks():
 
 def test_forest_neus_model_query_and_grads():
     from nr3d_lib_tpu.models.fields_forest import LoTDForestNeuSModel
-    from flax import nnx
+    from nr3d_lib_tpu import nn
 
     model = LoTDForestNeuSModel(
         space_cfg={"resolution": (2, 2, 2), "origin": (-1, -1, -1),
@@ -74,10 +74,10 @@ def test_forest_neus_model_query_and_grads():
     assert rendered["rgb_volume"].shape == (2, 3)
 
     # per-block params get gradients
-    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    graphdef, params, rest = nn.split(model, nn.Param, ...)
 
     def loss(p):
-        m = nnx.merge(graphdef, p, rest)
+        m = nn.merge(graphdef, p, rest)
         r, _ = m.ray_query(m.ray_test(o, d), key=jax.random.key(0))
         return jnp.sum(r["rgb_volume"] ** 2)
 
@@ -194,12 +194,12 @@ def test_emernerf_temporal_aggregation_and_cycle(rng):
     assert "flow_fwd" in out0 and "flow_fwd_pred_bwd" not in out0
 
     # cycle loss is differentiable wrt params
-    import flax.nnx as nnx
+    from nr3d_lib_tpu import nn
 
-    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    graphdef, params, rest = nn.split(model, nn.Param, ...)
 
     def loss(p):
-        m = nnx.merge(graphdef, p, rest)
+        m = nn.merge(graphdef, p, rest)
         return emernerf_cycle_loss(m(x, v, ts, with_rgb=False))
 
     g = jax.grad(loss)(params)
@@ -281,7 +281,7 @@ def test_permuto_static_field_family():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from flax import nnx
+    from nr3d_lib_tpu import nn
 
     from nr3d_lib_tpu.models.fields import PermutoNeRF, PermutoNeuS, PermutoSDF
 
@@ -308,10 +308,10 @@ def test_permuto_static_field_family():
                                  "decoder_cfg": {"D": 1, "W": 16},
                                  "radius_init": 0.5},
                     radiance_cfg={"D": 1, "W": 16})
-    graphdef, params, rest = nnx.split(m, nnx.Param, ...)
+    graphdef, params, rest = nn.split(m, nn.Param, ...)
 
     def loss(p):
-        mm = nnx.merge(graphdef, p, rest)
+        mm = nn.merge(graphdef, p, rest)
         o = mm.implicit_surface.forward_sdf_nablas(x)
         return jnp.mean((jnp.linalg.norm(o["nablas"], axis=-1) - 1.0) ** 2)
 

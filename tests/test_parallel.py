@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 
 def test_sharded_train_step_matches_single_device():
@@ -57,10 +57,10 @@ def test_sharded_nerf_render_consistency():
             "lod_res": [8], "lod_n_feats": 2, "lod_types": "Dense"}},
             "density_decoder_cfg": {"D": 1, "W": 8},
             "radiance_cfg": {"D": 1, "W": 8}})
-    graphdef, state = nnx.split(model)
+    graphdef, state = nn.split(model)
 
     def render(state, o, d):
-        m = nnx.merge(graphdef, state)
+        m = nn.merge(graphdef, state)
         rt = m.space.ray_test(o, d)
         rendered, _ = nerf_ray_query_fixed(m, m.space, rt, n_samples=16)
         return rendered["rgb_volume"]

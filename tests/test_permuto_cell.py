@@ -1,4 +1,4 @@
-"""Cell-packed permuto fast path (ops/permuto_cell.py — the brick trick
+"""Cell-packed permuto encoding (ops/permuto_cell.py — the brick trick
 applied to the simplex lattice; reference csrc/permuto kernels)."""
 
 import jax
@@ -24,7 +24,7 @@ def test_layout_invariants():
         assert meta.n_slots == 2 ** (d + 1)
         assert meta.cells_per_row * meta.n_slots * PC.N_FEAT == PC.LANES
         assert meta.stride >= (d + 1) * PC.N_FEAT
-        assert meta.levels_per_call * meta.stride <= PC.LANES
+        assert meta.vp * PC.N_FEAT == meta.stride
 
 
 def test_xla_encode_continuity(rng):
@@ -44,87 +44,35 @@ def test_xla_encode_continuity(rng):
     assert float(jnp.max(jnp.abs(y1 - y0))) < 1e-2
 
 
-def test_pallas_interpret_parity(rng):
-    """Kernel (interpret mode) vs the XLA formulation, incl. a >1-group
-    level count (forces level chunking)."""
-    for d, res in [(3, [3.0, 5.0, 9.0]), (2, [4.0, 8.0]),
-                   (4, [3.0, 5.0]),
-                   (3, [float(2 ** (1 + 0.3 * i)) for i in range(18)])]:
-        meta = PC.make_permuto_cell_meta(d, res, hashmap_rows=256)
-        table = jnp.asarray(rng.standard_normal((meta.total_rows, 128))
-                            .astype(np.float32))
-        x = jnp.asarray(rng.uniform(0.0, 1.0, (512, d)).astype(np.float32))
-        y_ref = PC.permuto_cell_encode_xla(x, table, meta)
-        # both the pipelined v3 (block=128 so the 256-tile triggers it)
-        # and the phase-serial v2 kernels
-        # v3 with the one-hot MXU gather on AND off (all test levels are
-        # small → mxu=False keeps the scalar gather covered), plus v2
-        saved = (PC._FWD_VERSION, PC._FWD_BLOCK, PC._MXU_DENSE)
-        try:
-            for ver, blk, mxu in ((3, 128, True), (3, 128, False),
-                                  (2, 128, True)):
-                PC._FWD_VERSION, PC._FWD_BLOCK = ver, blk
-                PC._MXU_DENSE = mxu
-                y_k = PC._encode_pallas(x, table, meta, tile=256,
-                                        interpret=True)
-                np.testing.assert_allclose(
-                    np.asarray(y_k), np.asarray(y_ref), rtol=2e-4,
-                    atol=2e-4, err_msg=f"d={d} L={len(res)} v{ver} mxu={mxu}")
-        finally:
-            PC._FWD_VERSION, PC._FWD_BLOCK, PC._MXU_DENSE = saved
-
-
-def test_pallas_backward_interpret_parity(rng):
-    meta = _meta(res=(3.0, 6.0), rows=128)
-    table = jnp.asarray(rng.standard_normal((meta.total_rows, 128))
-                        .astype(np.float32))
-    x = jnp.asarray(rng.uniform(0.0, 1.0, (512, 3)).astype(np.float32))
-    g = jnp.asarray(rng.standard_normal((512, 4)).astype(np.float32))
-    _, vjp_fn = jax.vjp(
-        lambda tt: PC.permuto_cell_encode_xla(x, tt, meta), table)
-    dtab_ref = vjp_fn(g)[0]
-    saved = (PC._FWD_VERSION, PC._FWD_BLOCK, PC._MXU_DENSE)
-    try:
-        for ver, blk, mxu in ((3, 128, True), (3, 128, False),
-                              (2, 128, True)):
-            PC._FWD_VERSION, PC._FWD_BLOCK = ver, blk
-            PC._MXU_DENSE = mxu
-            dtab_k = PC._bwd_table_pallas(g, x, meta, jnp.float32, tile=256,
-                                          interpret=True)
-            np.testing.assert_allclose(np.asarray(dtab_k),
-                                       np.asarray(dtab_ref),
-                                       rtol=2e-4, atol=2e-4,
-                                       err_msg=f"v{ver} mxu={mxu}")
-    finally:
-        PC._FWD_VERSION, PC._FWD_BLOCK, PC._MXU_DENSE = saved
-
-
 def test_custom_vjp_cpu_matches_autodiff(rng):
-    meta = _meta(res=(3.0, 7.0), rows=128)
+    """PermutoParams(backend='cell') wires the cell encode: values and
+    grads to (x, table) equal plain autodiff of permuto_cell_encode_xla,
+    and batch dims are restored."""
+    from nr3d_lib_tpu.models.grid_encodings.permuto.permuto_encoding import (
+        PermutoParams)
+
+    bank = PermutoParams(3, [3.0, 7.0], backend="cell", hashmap_rows=128)
+    meta = bank.meta
     table = jnp.asarray(rng.standard_normal((meta.total_rows, 128))
                         .astype(np.float32) * 0.1)
-    x = jnp.asarray(rng.uniform(0.1, 0.9, (64, 3)).astype(np.float32))
+    bank.flattened_params[...] = table
+    x = jnp.asarray(rng.uniform(0.1, 0.9, (4, 16, 3)).astype(np.float32))
+    y = bank.encode(x)
+    assert y.shape == (4, 16, meta.out_features)
 
-    def loss_c(xx, tt):
-        return jnp.sum(PC.permuto_cell_encode(xx, tt, meta) ** 2)
+    def loss_m(xx, tt):
+        bank.flattened_params[...] = tt
+        return jnp.sum(bank.encode(xx) ** 2)
 
     def loss_p(xx, tt):
-        return jnp.sum(PC.permuto_cell_encode_xla(xx, tt, meta) ** 2)
+        return jnp.sum(PC.permuto_cell_encode_xla(
+            xx.reshape(-1, 3), tt, meta) ** 2)
 
-    gc = jax.grad(loss_c, argnums=(0, 1))(x, table)
+    gm = jax.grad(loss_m, argnums=(0, 1))(x, table)
     gp = jax.grad(loss_p, argnums=(0, 1))(x, table)
-    for a, b in zip(gc, gp):
+    for a, b in zip(gm, gp):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-5, atol=1e-6)
-
-    # frozen-x: table grad identical, x grad zero by construction
-    def loss_f(xx, tt):
-        return jnp.sum(PC.permuto_cell_encode_frozen_x(xx, tt, meta) ** 2)
-
-    gf = jax.grad(loss_f, argnums=(0, 1))(x, table)
-    np.testing.assert_allclose(np.asarray(gf[1]), np.asarray(gp[1]),
-                               rtol=1e-5, atol=1e-6)
-    assert float(jnp.sum(jnp.abs(gf[0]))) == 0.0
 
 
 def test_fit_quality_vs_classic_permuto(rng):
@@ -166,7 +114,7 @@ def test_fit_quality_vs_classic_permuto(rng):
     cmeta = PC.make_permuto_cell_meta(3, res, hashmap_rows=512)
     ctab = jnp.asarray(rng.standard_normal(
         (cmeta.total_rows, 128)).astype(np.float32)) * 1e-3
-    l_cell = fit(lambda x, p: PC.permuto_cell_encode(x, p, cmeta), ctab)
+    l_cell = fit(lambda x, p: PC.permuto_cell_encode_xla(x, p, cmeta), ctab)
 
     pmeta = P.make_permuto_meta(3, res, n_feats=2, log2_hashmap_size=14)
     ptab = jnp.asarray(rng.standard_normal(
@@ -174,44 +122,6 @@ def test_fit_quality_vs_classic_permuto(rng):
     l_classic = fit(lambda x, p: P.permuto_encode(x, p, pmeta), ptab)
 
     assert l_cell < max(3.0 * l_classic, 1e-3), (l_cell, l_classic)
-
-
-def test_pallas_full_backward_interpret_parity(rng):
-    """Full backward kernel (dx + dtable in one pass — reference
-    permuto_enc_bwd with need_input_grad) vs XLA vjp, interpret mode,
-    3D and 4D, incl. anisotropic scales and multi-group level counts."""
-    for d, res in [(3, [3.0, 6.5]), (4, [2.0, 4.0]),
-                   (3, [(3.0, 4.0, 5.0)]),
-                   (3, [float(3 + i) for i in range(18)])]:
-        meta = PC.make_permuto_cell_meta(d, res, hashmap_rows=128)
-        table = jnp.asarray(rng.standard_normal((meta.total_rows, 128))
-                            .astype(np.float32))
-        x = jnp.asarray(rng.uniform(0.05, 0.95, (512, d)).astype(np.float32))
-        g = jnp.asarray(rng.standard_normal((512, meta.out_features))
-                        .astype(np.float32))
-        _, vjp_fn = jax.vjp(
-            lambda xx, tt: PC.permuto_cell_encode_xla(xx, tt, meta), x, table)
-        dx_ref, dtab_ref = vjp_fn(g)
-        saved = (PC._FWD_VERSION, PC._FWD_BLOCK, PC._MXU_DENSE)
-        # v3 only on the small configs — the 18-level one interprets
-        # slowly and the pipelined path is config-independent; the v3
-        # passes run MXU on and off (all test levels are MXU-eligible)
-        vers = ((3, 128, True), (3, 128, False), (2, 128, True)) \
-            if len(res) <= 2 else ((2, 128, True),)
-        try:
-            for ver, blk, mxu in vers:
-                PC._FWD_VERSION, PC._FWD_BLOCK = ver, blk
-                PC._MXU_DENSE = mxu
-                dx_k, dtab_k = PC._bwd_full_pallas(g, x, table, meta,
-                                                   tile=256, interpret=True)
-                np.testing.assert_allclose(
-                    np.asarray(dtab_k), np.asarray(dtab_ref), rtol=2e-4,
-                    atol=2e-4, err_msg=f"dtab d={d} L={len(res)} v{ver}")
-                np.testing.assert_allclose(
-                    np.asarray(dx_k), np.asarray(dx_ref), rtol=2e-3,
-                    atol=2e-3, err_msg=f"dx d={d} L={len(res)} v{ver}")
-        finally:
-            PC._FWD_VERSION, PC._FWD_BLOCK, PC._MXU_DENSE = saved
 
 
 def test_auto_dense_levels(rng):
@@ -254,69 +164,22 @@ def test_auto_dense_levels(rng):
     assert np.isfinite(np.asarray(y)).all()
 
 
-def test_nablas_kernel_interpret_parity(rng):
-    """permuto_cell_nablas kernel (interpret) vs XLA vjp, MXU on/off, and
-    its 2nd-order grads (eikonal-through-nablas) vs nested autodiff."""
-    meta = _meta(res=(3.0, 6.0, 11.0), rows=128)
-    table = jnp.asarray(rng.standard_normal((meta.total_rows, 128))
-                        .astype(np.float32))
-    n = 512
-    x = jnp.asarray(rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32))
-    g = jnp.asarray(rng.standard_normal((n, 2 * meta.n_levels))
-                    .astype(np.float32))
-
-    _, vjp_x = jax.vjp(
-        lambda xx: PC.permuto_cell_encode_xla(xx, table, meta), x)
-    nab_ref = vjp_x(g)[0]
-    saved = (PC._FWD_VERSION, PC._FWD_BLOCK, PC._MXU_DENSE)
-    try:
-        for mxu in (True, False):
-            PC._FWD_VERSION, PC._FWD_BLOCK, PC._MXU_DENSE = 3, 256, mxu
-            nab_k = PC._dydx_pallas(g, x, table, meta, tile=512,
-                                    interpret=True)
-            np.testing.assert_allclose(np.asarray(nab_k),
-                                       np.asarray(nab_ref),
-                                       rtol=2e-3, atol=2e-3,
-                                       err_msg=f"mxu={mxu}")
-    finally:
-        PC._FWD_VERSION, PC._FWD_BLOCK, PC._MXU_DENSE = saved
-
-    # 2nd order on CPU: grads through the custom vjp equal nested autodiff
-    def eik(gu, xx, tt):
-        nab = PC.permuto_cell_nablas(gu, xx, tt, meta)
-        return jnp.mean((jnp.linalg.norm(nab, axis=-1) - 1.0) ** 2)
-
-    def eik_ref(gu, xx, tt):
-        _, vjp_fn = jax.vjp(
-            lambda x_: PC.permuto_cell_encode_xla(x_, tt, meta), xx)
-        nab = vjp_fn(gu)[0]
-        return jnp.mean((jnp.linalg.norm(nab, axis=-1) - 1.0) ** 2)
-
-    g1 = jax.grad(eik, argnums=(0, 2))(g[:64], x[:64], table)
-    g2 = jax.grad(eik_ref, argnums=(0, 2))(g[:64], x[:64], table)
-    for a, b in zip(g1, g2):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-6)
-
-
 def test_sdf_cell_nablas_split(rng):
-    """PermutoSDF(cell backend): the split nablas path (decoder vjp +
-    encoding nablas kernel) matches full autodiff through the ho path,
-    and eikonal grads stay finite (the training usage)."""
+    """PermutoSDF(cell backend): forward_sdf_nablas matches full autodiff
+    of the field, and eikonal grads stay finite (the training usage)."""
     import optax
-    from flax import nnx
+    from nr3d_lib_tpu import nn
 
     from nr3d_lib_tpu.models.fields.sdf import PermutoSDF
 
     f = PermutoSDF(permuto_cfg={"res_list": [3.0, 7.0], "backend": "cell",
                                 "hashmap_rows": 128},
                    decoder_cfg={"D": 1, "W": 16}, radius_init=0.5)
-    assert f._enc_is_cell
     x = jnp.asarray(rng.uniform(-0.9, 0.9, (128, 3)).astype(np.float32))
     out = f.forward_sdf_nablas(x)
 
     def f_ref(xx):
-        o = f._sdf_h(xx, ho=True)
+        o = f._sdf_h(xx)
         return o[..., 0], o[..., 1:]
 
     (sdf_ref, h_ref), vjp_fn = jax.vjp(f_ref, x)
@@ -326,10 +189,10 @@ def test_sdf_cell_nablas_split(rng):
     np.testing.assert_allclose(np.asarray(out["nablas"]),
                                np.asarray(nab_ref), rtol=1e-4, atol=1e-5)
 
-    gdef, state = nnx.split(f)
+    gdef, state = nn.split(f)
 
     def loss(s):
-        m = nnx.merge(gdef, s)
+        m = nn.merge(gdef, s)
         o = m.forward_sdf_nablas(x)
         return jnp.mean((jnp.linalg.norm(o["nablas"], axis=-1) - 1) ** 2) \
             + jnp.mean(o["sdf"] ** 2)

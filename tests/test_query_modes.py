@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-from flax import nnx
+from nr3d_lib_tpu import nn
 
 
 def _nerf_model(query_cfg):
@@ -55,12 +55,12 @@ def test_nerf_compressed_grad_flows():
     m = _nerf_model({"query_mode": "march_occ_compressed",
                      "compression_factor": 0.5})
     m.populate()
-    graphdef, params, rest = nnx.split(m, nnx.Param, ...)
+    graphdef, params, rest = nn.split(m, nn.Param, ...)
     o = jnp.asarray([[-2.0, 0.0, 0.0], [0.0, -2.0, 0.1]])
     d = jnp.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
 
     def loss_fn(p):
-        mm = nnx.merge(graphdef, p, rest)
+        mm = nn.merge(graphdef, p, rest)
         rendered, _ = mm.ray_query(mm.ray_test(o, d))
         return jnp.mean(rendered["rgb_volume"] ** 2) + \
             jnp.mean(rendered["depth_volume"] ** 2)
@@ -293,12 +293,12 @@ def test_nerf_multi_upsample_dispatch_and_grads():
     m = _nerf_model({"query_mode": "march_occ_multi_upsample_compressed",
                      "compression_factor": 0.5, "n_fine": 8})
     m.populate()
-    graphdef, params, rest = nnx.split(m, nnx.Param, ...)
+    graphdef, params, rest = nn.split(m, nn.Param, ...)
     o = jnp.asarray([[-2.0, 0.0, 0.0], [0.0, -2.0, 0.1]])
     d = jnp.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
 
     def loss_fn(p):
-        mm = nnx.merge(graphdef, p, rest)
+        mm = nn.merge(graphdef, p, rest)
         r, _ = mm.ray_query(mm.ray_test(o, d), key=jax.random.key(0))
         return jnp.mean(r["rgb_volume"] ** 2) + jnp.mean(r["depth_volume"])
 

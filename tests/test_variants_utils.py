@@ -203,7 +203,7 @@ def test_mll_net_trains_sdf(rng):
     """VERDICT r04 #8 'done' gate: MLLNet trains on an SDF smoke test."""
     import jax
     import optax
-    from flax import nnx
+    from nr3d_lib_tpu import nn
 
     from nr3d_lib_tpu.models.grid_encodings.permuto.mll import MLLNet
 
@@ -211,7 +211,7 @@ def test_mll_net_trains_sdf(rng):
                  decoder_out_feats=8,
                  lattice_cfg=dict(coarsest_res=4.0, finest_res=32.0,
                                   log2_hashmap_size=12))
-    graphdef, params, rest = nnx.split(net, nnx.Param, ...)
+    graphdef, params, rest = nn.split(net, nn.Param, ...)
     opt = optax.adam(3e-3)
     opt_state = opt.init(params)
     x = jnp.asarray(rng.uniform(-1, 1, (512, 3)).astype(np.float32))
@@ -220,7 +220,7 @@ def test_mll_net_trains_sdf(rng):
     @jax.jit
     def step(p, s):
         def loss_fn(pp):
-            m = nnx.merge(graphdef, pp, rest)
+            m = nn.merge(graphdef, pp, rest)
             pred = m(x)["output"][:, 0]
             return jnp.mean((pred - sdf_gt) ** 2)
 
